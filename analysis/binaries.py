@@ -17,7 +17,7 @@ ionised). The NN search is an exact chunked O(N^2) sweep in numpy — no
 tree approximations, matching the framework's direct-summation character.
 
 Usage:
-    python analysis/binaries.py out/run/snapshot_000012.h5
+    python analysis/binaries.py out/run/snapshot_000012.npz
     python analysis/binaries.py out/run            # latest snapshot in dir
     python analysis/binaries.py out/run --csv pairs.csv --save ae.png
 """
@@ -27,7 +27,6 @@ import json
 import os
 import sys
 
-import h5py
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -35,22 +34,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def _pick_snapshot(path):
     if os.path.isdir(path):
-        snaps = sorted(glob.glob(os.path.join(path, "snapshot_*.h5")))
+        snaps = sorted(glob.glob(os.path.join(path, "snapshot_*.npz")))
         if not snaps:
-            raise SystemExit(f"no snapshot_*.h5 in {path}")
+            raise SystemExit(f"no snapshot_*.npz in {path}")
         return snaps[-1]
     return path
 
 
 def _load(path):
-    with h5py.File(path, "r") as f:
+    with np.load(path, allow_pickle=False) as f:
         pos = np.asarray(f["particles/pos"], np.float64)
         vel = np.asarray(f["particles/vel"], np.float64)
         mass = np.asarray(f["particles/mass"], np.float64)
-        ids = (np.asarray(f["particles/ids"]) if "particles/ids" in f
+        ids = (np.asarray(f["particles/ids"]) if "particles/ids" in f.files
                else np.arange(pos.shape[0]))
-        t = float(f.attrs.get("time", np.nan))
-        cfg_json = f.attrs.get("config_json", None)
+        t = float(f["@time"]) if "@time" in f.files else np.nan
+        cfg_json = (f["@config_json"].item() if "@config_json" in f.files
+                    else None)
     return pos, vel, mass, ids, t, cfg_json
 
 
@@ -113,9 +113,9 @@ def _evolution(run_dir, G, chunk):
     Survival tracks the FIRST snapshot's pairs by particle id: a pair
     "survives" at time t if the same (id, id) couple is still a bound
     mutual-NN pair then (exchanges count as loss — rare and deliberate)."""
-    snaps = sorted(glob.glob(os.path.join(run_dir, "snapshot_*.h5")))
+    snaps = sorted(glob.glob(os.path.join(run_dir, "snapshot_*.npz")))
     if not snaps:
-        raise SystemExit(f"no snapshot_*.h5 in {run_dir}")
+        raise SystemExit(f"no snapshot_*.npz in {run_dir}")
     initial = None
     print(f"{'t':>12} {'pairs':>7} {'hard':>6} {'survive':>8}")
     for snap in snaps:

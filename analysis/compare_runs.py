@@ -13,7 +13,6 @@ import argparse
 import os
 import sys
 
-import h5py
 import matplotlib
 
 matplotlib.use("Agg")
@@ -22,9 +21,9 @@ import numpy as np  # noqa: E402
 
 
 def load_diagnostics(run_dir):
-    path = os.path.join(run_dir, "diagnostics.h5")
-    with h5py.File(path, "r") as f:
-        return {k: np.asarray(f[k]) for k in f.keys()}
+    path = os.path.join(run_dir, "diagnostics.npz")
+    with np.load(path, allow_pickle=False) as f:
+        return {k: np.asarray(f[k]) for k in f.files}
 
 
 def main(argv=None):

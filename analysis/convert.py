@@ -16,13 +16,13 @@ universal adapter for the formats the wider toolchain actually speaks:
   (``.npy``: a single (N,7) or (N,8) array, table column order.)
 
 Usage:
-  # foreign IC -> snapshot usable as  [ic] kind="file"  file="ic.h5"
-  python analysis/convert.py import cluster.dat ic.h5 \
+  # foreign IC -> snapshot usable as  [ic] kind="file"  file="ic.npz"
+  python analysis/convert.py import cluster.dat ic.npz \
       [--mass-scale S] [--length-scale S] [--velocity-scale S] [--time T]
 
   # snapshot -> table/archive for foreign tools
-  python analysis/convert.py export out/run/snapshot_00004.h5 snap.csv
-  python analysis/convert.py export out/run/snapshot_00004.h5 snap.npz
+  python analysis/convert.py export out/run/snapshot_00004.npz snap.csv
+  python analysis/convert.py export out/run/snapshot_00004.npz snap.npz
 
 The ``--*-scale`` factors multiply the input columns on import (use them
 to convert physical units into code units: e.g. masses in Msun with
@@ -35,10 +35,10 @@ import os
 
 import numpy as np
 
-# Like every analysis script, this one speaks the documented HDF5 schema
-# (docs/SNAPSHOT_SCHEMA.md) with h5py + numpy ONLY — importing the engine
-# would pull in jax, whose backend init needs the accelerator runtime (an
-# IC converter must work on a login node with no TPU grant).
+# Like every analysis script, this one speaks the documented snapshot
+# schema (docs/SNAPSHOT_SCHEMA.md) with numpy ONLY — importing the engine
+# would pull in jax (an IC converter must work on a login node with no
+# accelerator).
 SCHEMA_VERSION = 1  # io/snapshot.py:40
 
 
@@ -97,23 +97,20 @@ def do_import(args):
     if ids is None:
         ids = np.arange(n, dtype=np.int32)
 
-    import h5py
-
     # schema v1, written directly (matches io/snapshot.py:_write_file;
     # atomic via .tmp + rename like the engine's writer)
     tmp = args.output + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)
-    with h5py.File(tmp, "w") as f:
-        g = f.create_group("particles")
-        g.create_dataset("pos", data=np.asarray(pos, np.float64))
-        g.create_dataset("vel", data=np.asarray(vel, np.float64))
-        g.create_dataset("mass", data=np.asarray(mass, np.float32))
-        g.create_dataset("ids", data=np.asarray(ids, np.int32))
-        g.attrs["n"] = n
-        f.create_group("integrator")
-        f.attrs["schema_version"] = SCHEMA_VERSION
-        f.attrs["time"] = float(time)
-        f.attrs["step"] = 0
+    with open(tmp, "wb") as f:
+        np.savez(f, **{
+            "particles/pos": np.asarray(pos, np.float64),
+            "particles/vel": np.asarray(vel, np.float64),
+            "particles/mass": np.asarray(mass, np.float32),
+            "particles/ids": np.asarray(ids, np.int32),
+            "particles@n": np.asarray(n),
+            "@schema_version": np.asarray(SCHEMA_VERSION),
+            "@time": np.asarray(float(time)),
+            "@step": np.asarray(0)})
     os.replace(tmp, args.output)
     m = np.asarray(mass, np.float64)
     print(f"wrote {args.output}: N={len(m)}  M_tot={m.sum():.6g}  "
@@ -122,16 +119,14 @@ def do_import(args):
 
 
 def do_export(args):
-    import h5py
-
-    with h5py.File(args.input, "r") as f:
-        g = f["particles"]
-        pos = np.asarray(g["pos"], np.float64)
-        vel = np.asarray(g["vel"], np.float64)
-        mass = np.asarray(g["mass"], np.float64)
-        ids = np.asarray(g["ids"], np.int32)
-        time = float(f.attrs.get("time", 0.0))
-        units = dict(f["units"].attrs) if "units" in f else {}
+    with np.load(args.input, allow_pickle=False) as f:
+        pos = np.asarray(f["particles/pos"], np.float64)
+        vel = np.asarray(f["particles/vel"], np.float64)
+        mass = np.asarray(f["particles/mass"], np.float64)
+        ids = np.asarray(f["particles/ids"], np.int32)
+        time = float(f["@time"]) if "@time" in f.files else 0.0
+        units = {k.split("@", 1)[1]: f[k].item() for k in f.files
+                 if k.startswith("units@")}
 
     ext = os.path.splitext(args.output)[1].lower()
     if ext == ".npz":
@@ -152,9 +147,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    imp = sub.add_parser("import", help="table/npz/npy -> snapshot .h5")
+    imp = sub.add_parser("import", help="table/npz/npy -> snapshot .npz")
     imp.add_argument("input")
-    imp.add_argument("output", help="snapshot .h5 path to write")
+    imp.add_argument("output", help="snapshot .npz path to write")
     imp.add_argument("--mass-scale", type=float, default=1.0)
     imp.add_argument("--length-scale", type=float, default=1.0)
     imp.add_argument("--velocity-scale", type=float, default=1.0)
@@ -162,8 +157,8 @@ def main(argv=None):
                      help="override the stored simulation time")
     imp.set_defaults(fn=do_import)
 
-    exp = sub.add_parser("export", help="snapshot .h5 -> .csv/.txt/.npz")
-    exp.add_argument("input", help="snapshot .h5 path")
+    exp = sub.add_parser("export", help="snapshot .npz -> .csv/.txt/.npz")
+    exp.add_argument("input", help="snapshot .npz path")
     exp.add_argument("output", help=".csv / .txt / .dat / .npz to write")
     exp.set_defaults(fn=do_export)
 

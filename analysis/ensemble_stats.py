@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Survey summaries over an ensemble.h5 (oc_nbody_tpu.ensemble output).
+"""Survey summaries over an ensemble.npz (oc_nbody_tpu.ensemble output).
 
 Per member: seed (and sweep value), final bound-mass fraction, final
 half-mass radius, peak |dE/E_int|, and the dissolution time (first
@@ -7,7 +7,7 @@ diagnostics time with N_bound == 0; '-' if still alive). Then ensemble
 mean/scatter — the numbers a survey actually wants, straight off the
 (T, E) columns.
 
-Usage: python analysis/ensemble_stats.py out/run/ensemble.h5 [--json]
+Usage: python analysis/ensemble_stats.py out/run/ensemble.npz [--json]
 """
 import argparse
 import json

@@ -25,21 +25,21 @@ import json
 import os
 import sys
 
-import h5py
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _load(path):
-    with h5py.File(path, "r") as f:
+    with np.load(path, allow_pickle=False) as f:
         pos = np.asarray(f["particles/pos"], np.float64)
         vel = np.asarray(f["particles/vel"], np.float64)
         mass = np.asarray(f["particles/mass"], np.float64)
-        ids = (np.asarray(f["particles/ids"]) if "particles/ids" in f
+        ids = (np.asarray(f["particles/ids"]) if "particles/ids" in f.files
                else np.arange(pos.shape[0]))
-        t = float(f.attrs.get("time", np.nan))
-        cfg_json = f.attrs.get("config_json", None)
+        t = float(f["@time"]) if "@time" in f.files else np.nan
+        cfg_json = (f["@config_json"].item() if "@config_json" in f.files
+                    else None)
     return pos, vel, mass, ids, t, cfg_json
 
 
@@ -64,7 +64,7 @@ def _build_force(cfg_json):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("run_dir", help="run output directory with snapshot_*.h5")
+    ap.add_argument("run_dir", help="run output directory with snapshot_*.npz")
     ap.add_argument("--save", default=None, help="write the figure here "
                     "(default <run_dir>/escapers.png)")
     ap.add_argument("--csv", default=None,
@@ -72,7 +72,7 @@ def main(argv=None):
                     "tail) as CSV")
     args = ap.parse_args(argv)
 
-    snaps = sorted(glob.glob(os.path.join(args.run_dir, "snapshot_*.h5")))
+    snaps = sorted(glob.glob(os.path.join(args.run_dir, "snapshot_*.npz")))
     if len(snaps) < 2:
         print(f"need >= 2 snapshots in {args.run_dir}, found {len(snaps)}")
         return 1

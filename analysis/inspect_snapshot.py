@@ -1,12 +1,11 @@
 #!/usr/bin/env python
 """Print a summary of a snapshot file and optionally plot the cluster.
 
-Usage: python analysis/inspect_snapshot.py out/run/snapshot_00003.h5 [--plot xy.png]
+Usage: python analysis/inspect_snapshot.py out/run/snapshot_00003.npz [--plot xy.png]
 """
 import argparse
 import sys
 
-import h5py
 import numpy as np
 
 
@@ -16,18 +15,23 @@ def main(argv=None):
     ap.add_argument("--plot", default=None, help="write an x-y scatter PNG")
     args = ap.parse_args(argv)
 
-    with h5py.File(args.snapshot, "r") as f:
+    with np.load(args.snapshot, allow_pickle=False) as f:
         pos = np.asarray(f["particles/pos"])
         vel = np.asarray(f["particles/vel"])
         mass = np.asarray(f["particles/mass"], np.float64)
-        print(f"schema v{f.attrs.get('schema_version')}  "
-              f"t={f.attrs.get('time'):.6g}  step={f.attrs.get('step', '?')}  "
+        step = f["@step"].item() if "@step" in f.files else "?"
+        print(f"schema v{f['@schema_version'].item()}  "
+              f"t={f['@time'].item():.6g}  step={step}  "
               f"N={pos.shape[0]}")
-        if "integrator" in f:
-            print(f"integrator: {f['integrator'].attrs.get('kind')} "
-                  f"aux={list(f['integrator'].keys())}")
-        if "units" in f:
-            u = dict(f["units"].attrs)
+        aux = [k.split("/", 1)[1] for k in f.files
+               if k.startswith("integrator/")]
+        if "integrator@kind" in f.files or aux:
+            kind = (f["integrator@kind"].item()
+                    if "integrator@kind" in f.files else None)
+            print(f"integrator: {kind} aux={aux}")
+        u = {k.split("@", 1)[1]: f[k].item() for k in f.files
+             if k.startswith("units@")}
+        if u:
             print(f"units: {u}")
 
     com = (pos * mass[:, None]).sum(0) / mass.sum()

@@ -19,7 +19,6 @@ import glob
 import os
 import sys
 
-import h5py
 import matplotlib
 
 matplotlib.use("Agg")
@@ -28,18 +27,18 @@ import numpy as np  # noqa: E402
 
 
 def _snapshots(run_dir):
-    files = sorted(glob.glob(os.path.join(run_dir, "snapshot_*.h5")))
+    files = sorted(glob.glob(os.path.join(run_dir, "snapshot_*.npz")))
     if not files:
-        raise SystemExit(f"no snapshot_*.h5 under {run_dir}")
+        raise SystemExit(f"no snapshot_*.npz under {run_dir}")
     return files
 
 
 def _load(path):
-    with h5py.File(path, "r") as f:
+    with np.load(path, allow_pickle=False) as f:
         pos = np.asarray(f["particles/pos"], np.float64)
         vel = np.asarray(f["particles/vel"], np.float64)
         mass = np.asarray(f["particles/mass"], np.float64)
-        t = float(f.attrs.get("time", np.nan))
+        t = float(f["@time"]) if "@time" in f.files else np.nan
     return pos, vel, mass, t
 
 

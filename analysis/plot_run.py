@@ -10,7 +10,6 @@ import argparse
 import os
 import sys
 
-import h5py
 import matplotlib
 
 matplotlib.use("Agg")
@@ -19,9 +18,9 @@ import numpy as np  # noqa: E402
 
 
 def load_diagnostics(run_dir):
-    path = os.path.join(run_dir, "diagnostics.h5")
-    with h5py.File(path, "r") as f:
-        d = {k: np.asarray(f[k]) for k in f.keys()}
+    path = os.path.join(run_dir, "diagnostics.npz")
+    with np.load(path, allow_pickle=False) as f:
+        d = {k: np.asarray(f[k]) for k in f.files}
     # legacy tables written before the writer kept columns row-aligned can
     # have short columns; NaN-pad so every panel can plot against `time`
     n = max((len(v) for v in d.values()), default=0)

@@ -8,23 +8,23 @@ open-cluster structure diagnostics beyond the driver's time-series
 (plot_run.py covers evolution; this covers one snapshot's structure).
 
 Usage:
-    python analysis/profiles.py out/run/snapshot_00003.h5
-    python analysis/profiles.py snap.h5 --bins 40 --save profiles.png
+    python analysis/profiles.py out/run/snapshot_00003.npz
+    python analysis/profiles.py snap.npz --bins 40 --save profiles.png
 """
 import argparse
 import sys
 
-import h5py
 import numpy as np
 
 
 def load_snapshot(path):
-    with h5py.File(path, "r") as f:
+    with np.load(path, allow_pickle=False) as f:
         pos = np.asarray(f["particles/pos"], np.float64)
         vel = np.asarray(f["particles/vel"], np.float64)
         mass = np.asarray(f["particles/mass"], np.float64)
-        t = float(f.attrs.get("time", np.nan))
-        units = dict(f["units"].attrs) if "units" in f else {}
+        t = float(f["@time"]) if "@time" in f.files else np.nan
+        units = {k.split("@", 1)[1]: f[k].item() for k in f.files
+                 if k.startswith("units@")}
     return pos, vel, mass, t, units
 
 
@@ -292,7 +292,7 @@ def evolution(run_dir, save=None):
     import glob
     import os
 
-    snaps = sorted(glob.glob(os.path.join(run_dir, "snapshot_*.h5")))
+    snaps = sorted(glob.glob(os.path.join(run_dir, "snapshot_*.npz")))
     if len(snaps) < 2:
         print(f"need >= 2 snapshots in {run_dir}, found {len(snaps)}")
         return 1

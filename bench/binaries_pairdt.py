@@ -67,8 +67,6 @@ def main():
 
     import jax
     jax.config.update("jax_enable_x64", True)
-    from oc_nbody_tpu.utils.backend_wait import wait_for_backend
-    wait_for_backend()
     from oc_nbody_tpu.utils.cache import enable_compile_cache
     enable_compile_cache()
 

@@ -25,7 +25,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SNAP = "out/c4_r2s3/snapshot_00002.h5"   # t = 16.0, just before the crossing
+SNAP = "out/c4_r2s3/snapshot_00002.npz"   # t = 16.0, just before the crossing
 T_END = 22.0
 
 VARIANTS = {

@@ -41,9 +41,8 @@ def main():
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args()
 
-    if jax.default_backend() == "cpu":
-        print("needs a TPU backend; skipping")
-        return 0
+    if jax.default_backend() != "gpu":
+        sys.exit(f"needs a GPU (platform is {jax.default_backend()!r})") 0
 
     import dataclasses
 
@@ -55,7 +54,7 @@ def main():
     rows = []
     for n in args.ns:
         state = plummer(n, jax.random.PRNGKey(0))
-        force = make_force_model(eps, backend="pallas")
+        force = make_force_model(eps, backend="auto")
 
         # timeit chains on args[0] (pos); rebuild the state around it so
         # each evaluation depends on the previous output

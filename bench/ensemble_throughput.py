@@ -33,9 +33,8 @@ def main():
     ap.add_argument("--steps", type=int, default=256)
     args = ap.parse_args()
 
-    if jax.default_backend() == "cpu":
-        print("needs a TPU backend; skipping")
-        return 0
+    if jax.default_backend() != "gpu":
+        sys.exit(f"needs a GPU (platform is {jax.default_backend()!r})") 0
 
     import jax.numpy as jnp
 

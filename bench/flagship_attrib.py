@@ -45,7 +45,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SRC_DIR = "out/flagship_32k"
-RESUME_SNAP = 5            # snapshot_00005.h5 = t 50.0
+RESUME_SNAP = 5            # snapshot_00005.npz = t 50.0
 T_END = 65.0
 
 VARIANTS = {
@@ -81,9 +81,9 @@ def _prep_dir(name: str) -> str:
     if os.path.isdir(dst):
         shutil.rmtree(dst)
     os.makedirs(dst)
-    shutil.copy2(os.path.join(SRC_DIR, "diagnostics.h5"), dst)
+    shutil.copy2(os.path.join(SRC_DIR, "diagnostics.npz"), dst)
     for i in range(RESUME_SNAP + 1):
-        shutil.copy2(os.path.join(SRC_DIR, f"snapshot_{i:05d}.h5"), dst)
+        shutil.copy2(os.path.join(SRC_DIR, f"snapshot_{i:05d}.npz"), dst)
     return dst
 
 
@@ -94,8 +94,6 @@ def main():
 
     import jax
     jax.config.update("jax_enable_x64", True)
-    from oc_nbody_tpu.utils.backend_wait import wait_for_backend
-    wait_for_backend()
     from oc_nbody_tpu.utils.cache import enable_compile_cache
     enable_compile_cache()
 

@@ -40,9 +40,8 @@ def main():
     ap.add_argument("--repeats", type=int, default=10)
     args = ap.parse_args()
 
-    if jax.default_backend() == "cpu":
-        print("needs a TPU backend; skipping")
-        return 0
+    if jax.default_backend() != "gpu":
+        sys.exit(f"needs a GPU (platform is {jax.default_backend()!r})") 0
 
     from oc_nbody_tpu.config import apply_overrides, load_config
     from oc_nbody_tpu.scene import build_scene, make_stepper

@@ -1,15 +1,13 @@
 #!/usr/bin/env python
-"""Multi-chip scaling sweep: step time vs device count per source mode.
+"""Multi-device scaling sweep: step time vs device count per source mode.
 
-Prepared for the day a real pod slice is available (ROADMAP round-3 #1):
-on a v5e-8 this measures the c5-and-beyond scaling curve and answers
-whether the RDMA ring's explicit overlap beats XLA's collective
-scheduling. Until then it runs on the emulated CPU mesh (correctness of
-the composition, not meaningful timings) — pass --emulate N.
+On a four-GPU host this measures the c5-and-beyond scaling curve of the
+allgather, ring and halfring modes. On the emulated CPU mesh (--emulate N)
+it checks the composition only; its timings are not device numbers.
 
 Usage:
     python bench/scaling_sweep.py                 # real devices, all modes
-    python bench/scaling_sweep.py --n 131072 --modes ring rdma
+    python bench/scaling_sweep.py --n 131072 --modes ring halfring
     python bench/scaling_sweep.py --emulate 8 --n 4096 --repeats 2
 
 Writes bench/scaling.json (rows keyed by (mode, n_devices, N)).
@@ -27,7 +25,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=131072)
     ap.add_argument("--modes", nargs="*",
-                    default=["allgather", "ring", "rdma", "halfring"])
+                    default=["allgather", "ring", "halfring"])
     ap.add_argument("--devices", nargs="*", type=int, default=None,
                     help="device counts to sweep (default: 1,2,4,..,all)")
     ap.add_argument("--repeats", type=int, default=5)
@@ -53,15 +51,12 @@ def main():
     n_avail = len(jax.devices())
     counts = args.devices or [d for d in (1, 2, 4, 8, 16, 32)
                               if d <= n_avail]
-    backend = "jnp" if jax.default_backend() == "cpu" else "pallas"
+    from oc_nbody_tpu.ops.backend import resolve_backend
+    backend = resolve_backend("auto")
     state = plummer(args.n, jax.random.PRNGKey(0))
     rows = []
     for d in counts:
         for mode in args.modes:
-            if mode == "rdma" and backend != "pallas":
-                # RDMA ring is Pallas-only; on the emulated mesh it would
-                # need interpret mode (exercised in tests/distributed)
-                continue
             sf = make_sharded_force(eps=1.0 / 256, mesh=make_mesh(d),
                                     mode=mode, backend=backend)
 

@@ -5,7 +5,7 @@ The CLI driver (``python -m oc_nbody_tpu run cfg.toml``) is a thin layer
 over the same objects used here: build a unit system + force model,
 sample an IC, place it on a galactic orbit, construct a stepper, advance
 under jit, compute diagnostics. This script runs anywhere (CPU jnp
-backend included); on TPU the same code hits the Pallas kernels.
+backend included); on a GPU the same code runs the Pallas kernels.
 
 Usage: python examples/api_quickstart.py [N]
 """
@@ -31,7 +31,7 @@ def main(argv=None):
     print(f"time unit = {us.time_myr:.3f} Myr, G = {us.G:.3g}")
 
     # 2. External Milky Way field (scaled into code units) + force model
-    #    (backend auto: Pallas kernels on TPU, blocked jnp elsewhere).
+    #    (backend auto: Pallas kernels on a GPU, blocked jnp elsewhere).
     mw = milky_way(us.G, mass_scale=1.0 / us.mass_msun,
                    length_scale=1.0 / us.length_pc)
     force = make_force_model(eps=0.05, G=us.G, external=mw)

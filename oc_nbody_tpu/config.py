@@ -271,8 +271,8 @@ class OutputConfig:
 @dataclasses.dataclass
 class MeshConfig:
     n_devices: int = 1           # 0 = all visible devices
-    mode: str = "auto"           # auto | allgather | ring | rdma (Pallas
-    # RDMA ring) | halfring (pair-symmetric: each shard pair once)
+    mode: str = "auto"           # auto | allgather | ring | halfring
+    # (pair-symmetric: each shard pair once)
 
 
 @dataclasses.dataclass
@@ -288,6 +288,16 @@ class SimConfig:
     output: OutputConfig = dataclasses.field(default_factory=OutputConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     backend: str = "auto"        # force kernel backend: auto | jnp | pallas
+    # (ops.backend.resolve_backend: auto = the Pallas kernels on a GPU)
+
+    def validate(self) -> "SimConfig":
+        """Refuse settings no longer supported, with the replacement."""
+        if self.mesh.mode == "rdma":
+            raise ValueError(
+                "mesh.mode = 'rdma' was removed (its in-kernel remote "
+                "copies have no GPU form); use mesh.mode = 'ring', the "
+                "same ring over collectives")
+        return self
 
     # ---- (de)serialisation -------------------------------------------
     def to_dict(self) -> dict:
@@ -396,7 +406,7 @@ def _resolve_includes(path: str, _seen: frozenset = frozenset()) -> dict:
 
 
 def load_config(path: str) -> SimConfig:
-    return SimConfig.from_dict(_resolve_includes(path))
+    return SimConfig.from_dict(_resolve_includes(path)).validate()
 
 
 def apply_overrides(cfg: SimConfig, overrides: list[str]) -> SimConfig:
@@ -422,4 +432,4 @@ def apply_overrides(cfg: SimConfig, overrides: list[str]) -> SimConfig:
                 f"{dotted!r} is a config section; override its fields "
                 f"(e.g. --set {dotted}.kind=...) instead")
         setattr(obj, leaf, _coerce(value, field.type))
-    return cfg
+    return cfg.validate()

@@ -207,9 +207,9 @@ def local_density(pos, mass, center, k: int = 6,
         d2 = jnp.where(d2 <= 0.0, jnp.float32(jnp.inf), d2)
         # kth-nearest distance via k threshold passes: each pass takes the
         # min of the distances strictly above the previous rank's value.
-        # O(k·nsrc) compare/select on the VPU, replacing lax.top_k over the
-        # full source axis (a sort network — measured 5.45 s per
-        # diagnostics row at the 65536² sweep cap vs ~0.1 s for this form).
+        # O(k·nsrc) elementwise compare/select, replacing lax.top_k over
+        # the full source axis (a sort network, measured far slower at
+        # the 65536² sweep cap).
         # Tie semantics: exact-duplicate f32 distances collapse to one
         # rank and ALL tied masses count — measure-zero for sampled ICs,
         # and coincident stars are already excluded above.

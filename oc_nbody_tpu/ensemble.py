@@ -1,16 +1,15 @@
-"""Ensemble (survey) mode: many cluster realizations on one chip via vmap.
+"""Ensemble (survey) mode: many cluster realizations on one device via vmap.
 
-The TPU-native capability a CPU reference-class code does not have: small-N
-cluster runs underutilize the chip (an N=1024 force eval is ~30 µs of
-arithmetic behind ~300 µs of dispatch), but survey science — dissolution
+The capability a CPU reference-class code does not have: small-N cluster
+runs underutilize the device (an N=1024 force eval is far less arithmetic
+than the cost of one dispatch), but survey science — dissolution
 times, mass-loss scatter, relaxation statistics vs seed/mass/orbit — needs
 MANY realizations. ``run_ensemble`` stacks E realizations (same config,
 different ``ic.seed``) into one batched pytree and drives the SAME stepper
 code under ``jax.vmap``: one XLA program integrates the whole ensemble, so
-the per-dispatch overhead amortizes across members and the chip stays
-busy. Measured on the chip (bench/ensemble_throughput.json): N=1024 KDK
-members step at 8.0x the serial single-run rate for E=16, 12.8x for E=64,
-14.6x for E=256.
+the per-dispatch overhead amortizes across members and the device stays
+busy (bench/ensemble_throughput.py measures the throughput against serial
+single runs).
 
 Design constraints (v1, enforced):
 
@@ -25,8 +24,8 @@ Design constraints (v1, enforced):
   compaction's lax.switch would evaluate every branch under a batched
   level index);
 * the jnp blocked force kernel (``backend="jnp"``) — it vmaps cleanly;
-  Pallas kernels are written for single-realization shapes (their win is
-  at large N, which is not the ensemble regime);
+  the Pallas kernels target single-realization shapes at large N, which
+  is not the ensemble regime;
 * shared force model (eps, G, external potential, orbit, friction law)
   across members — the ensemble varies the IC seed; the mesh stays out
   (the batch axis IS the parallelism). Escape pruning composes since
@@ -57,7 +56,7 @@ IDENTICAL to running each seed alone (pinned in
 tests/unit/test_ensemble.py), and dissolved members just keep integrating
 (no cross-member control flow).
 
-Output: one ``ensemble.h5`` with each diagnostics column as a (T, E)
+Output: one ``ensemble.npz`` with each diagnostics column as a (T, E)
 dataset plus the final stacked state — the per-member time series a
 survey analysis actually wants, in one file.
 """
@@ -155,7 +154,7 @@ def run_ensemble(cfg: SimConfig, seeds, out_path=None, sweep=None,
     STATE-side (``ic.*`` except ``ic.n``, or ``orbit.*``) — they shape the
     initial conditions only, so every member shares one force model /
     external potential and the whole grid stays a single vmapped program.
-    Writes ``out_path`` (default: <out_dir>/ensemble.h5) and returns the
+    Writes ``out_path`` (default: <out_dir>/ensemble.npz) and returns the
     stacked final state plus the (T, E) diagnostics series.
     """
     _validate(cfg)
@@ -608,7 +607,7 @@ def run_ensemble(cfg: SimConfig, seeds, out_path=None, sweep=None,
     import os
 
     if out_path is None:
-        out_path = os.path.join(out.out_dir, "ensemble.h5")
+        out_path = os.path.join(out.out_dir, "ensemble.npz")
     # create the parent for explicit out_path too — an ensemble is minutes
     # of compute; dying at write time over a missing directory loses it all
     # (measured: a 48-member survey completed, then errno-2'd here)
@@ -624,38 +623,38 @@ def run_ensemble(cfg: SimConfig, seeds, out_path=None, sweep=None,
 
 
 def _write(path, cfg, seeds, table, states, sweep_key=None, sweep_vals=None):
-    import h5py
+    """One .npz (io.snapshot.write_npz, atomic): root attrs as ``@key``,
+    each diagnostics column (T, E) as ``diagnostics/<key>``, the stacked
+    final states (E, N, ...) as ``final_state/<key>``."""
+    from oc_nbody_tpu.io.snapshot import write_npz
 
-    with h5py.File(path, "w") as f:
-        f.attrs["schema"] = "ensemble-v1"
-        f.attrs["config_json"] = cfg.to_json()
-        f.attrs["seeds"] = np.asarray(seeds, np.int64)
-        if sweep_key is not None:
-            f.attrs["sweep_key"] = sweep_key
-            f.attrs["sweep_values"] = np.asarray(sweep_vals, np.float64)
-        g = f.create_group("diagnostics")        # each column (T, E)
-        for key, v in table.items():
-            g.create_dataset(key, data=v)
-        s = f.create_group("final_state")        # stacked (E, N, ...)
-        s.create_dataset("pos", data=np.asarray(states.pos))
-        s.create_dataset("vel", data=np.asarray(states.vel))
-        s.create_dataset("mass", data=np.asarray(states.mass))
-        s.create_dataset("ids", data=np.asarray(states.ids))
-        s.create_dataset("time", data=np.asarray(states.time))
+    arrays = {"@schema": "ensemble-v1", "@config_json": cfg.to_json(),
+              "@seeds": np.asarray(seeds, np.int64)}
+    if sweep_key is not None:
+        arrays["@sweep_key"] = sweep_key
+        arrays["@sweep_values"] = np.asarray(sweep_vals, np.float64)
+    for key, v in table.items():
+        arrays[f"diagnostics/{key}"] = v
+    for key in ("pos", "vel", "mass", "ids", "time"):
+        arrays[f"final_state/{key}"] = np.asarray(getattr(states, key))
+    write_npz(path, arrays)
 
 
 def read_ensemble(path):
     """(config_json, seeds, diagnostics dict of (T, E), final-state dict).
     With a sweep axis the per-member value rides in the final-state dict
     under ``"sweep_values"`` (key in the file's ``sweep_key`` attr)."""
-    import h5py
+    from oc_nbody_tpu.io.snapshot import read_npz, scalar
 
-    with h5py.File(path, "r") as f:
-        cfg_json = f.attrs["config_json"]
-        seeds = list(np.asarray(f.attrs["seeds"]))
-        table = {k: np.asarray(v) for k, v in f["diagnostics"].items()}
-        fin = {k: np.asarray(v) for k, v in f["final_state"].items()}
-        if "sweep_key" in f.attrs:
-            fin["sweep_key"] = str(f.attrs["sweep_key"])
-            fin["sweep_values"] = np.asarray(f.attrs["sweep_values"])
-    return cfg_json, seeds, table, fin
+    z = read_npz(path)
+
+    def group(name):
+        return {k[len(name) + 1:]: v for k, v in z.items()
+                if k.startswith(name + "/")}
+
+    table = group("diagnostics")
+    fin = group("final_state")
+    if "@sweep_key" in z:
+        fin["sweep_key"] = str(scalar(z["@sweep_key"]))
+        fin["sweep_values"] = z["@sweep_values"]
+    return str(scalar(z["@config_json"])), list(z["@seeds"]), table, fin

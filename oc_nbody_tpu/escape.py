@@ -1,7 +1,7 @@
 """Escape pruning: stop feeling forces FROM far-gone tidal-tail stars.
 
 The NBODY-family "remove escapers" capability (NBODY6 drops stars beyond
-~2 r_tide from the force summation entirely), rebuilt TPU-native. No
+~2 r_tide from the force summation entirely), rebuilt for JAX. No
 reference implementation exists to cite (/root/reference is empty —
 SURVEY.md §0); the capability class is standard for long tidal-stripping
 runs, where by late times most stars are unbound tail members that still

@@ -2,8 +2,10 @@
 
 Capability parity: SURVEY.md §3.2 — `forces.total_accel` combines the hot
 O(N^2) pairwise kernel with the O(N) analytic external potential. The
-pairwise backend is selectable: "jnp" (blocked lax.map, runs anywhere) or
-"pallas" (MXU/VPU production kernel, TPU only); "auto" picks Pallas on TPU.
+pairwise backend is chosen in one place, ``ops.backend.resolve_backend``:
+"pallas" (the Triton-route Pallas kernels, GPU), "jnp" (the XLA-compiled
+blocked lax.map, any platform) or "auto" (the kernels on a GPU, jnp
+elsewhere).
 
 External-field jerk is the convective derivative (v·∇)a_ext, computed with a
 single jvp — exact, no finite differencing.
@@ -19,7 +21,8 @@ import jax
 import jax.numpy as jnp
 
 from oc_nbody_tpu.models.potentials import Potential
-from oc_nbody_tpu.ops import gravity
+from oc_nbody_tpu.ops import df32, gravity
+from oc_nbody_tpu.ops.backend import pair_ops, resolve_backend
 
 
 # module-level jitted O(N) helpers for the host-level batched paths: the
@@ -49,13 +52,32 @@ def _friction_df_jit(friction, pos, vel, mass):
     return friction.accel_df(pos, vel, mass)
 
 
-def _default_backend() -> str:
-    # Mosaic kernels lower only on TPU; any other accelerator (GPU, future
-    # backends) must take the XLA-fused jnp path.
-    try:
-        return "pallas" if jax.default_backend() == "tpu" else "jnp"
-    except Exception:
-        return "jnp"
+@functools.partial(jax.jit, static_argnames=("backend", "interpret", "want",
+                                             "chunk"))
+def _rows_eval(rows, vrows, src, svel, mass, eps, G, *, backend, interpret,
+               want, chunk):
+    """One rows-vs-sources sweep as its own program (the batched paths'
+    dispatch unit); f32 operands, ``want`` in accel | phi | jerk."""
+    ops = pair_ops(backend, interpret)
+    if want == "accel":
+        return (ops.accel_rows(rows, src, mass, eps, G, chunk),)
+    if want == "phi":
+        return ops.accel_potential_rows(rows, src, mass, eps, G, chunk)
+    return ops.accel_jerk_rows(rows, vrows, src, svel, mass, eps, G, chunk)
+
+
+@functools.partial(jax.jit, static_argnames=("want", "guarded"))
+def _rows_eval_x(rhi, rlo, vrhi, vrlo, shi, slo, svhi, svlo, gm, eps, *,
+                 want, guarded):
+    """Extended-tier twin of ``_rows_eval`` on centred (hi, lo) planes."""
+    if want == "accel":
+        return (df32.accel_rows_x_hilo(rhi, rlo, shi, slo, gm, eps,
+                                       guarded=guarded),)
+    if want == "phi":
+        return df32.accel_potential_rows_x_hilo(rhi, rlo, shi, slo, gm, eps,
+                                                guarded=guarded)
+    return df32.accel_jerk_rows_x_hilo(rhi, rlo, vrhi, vrlo, shi, slo, svhi,
+                                       svlo, gm, eps, guarded=guarded)
 
 
 @jax.tree_util.register_dataclass
@@ -72,13 +94,16 @@ class ForceModel:
     external: Optional[Potential] = None
     backend: str = dataclasses.field(default="auto", metadata=dict(static=True))
     chunk: int = dataclasses.field(default=1024, metadata=dict(static=True))
+    # run the Pallas kernels through the interpreter (tests on the CPU)
+    interpret: bool = dataclasses.field(default=False,
+                                        metadata=dict(static=True))
     # pairwise arithmetic tier: "f32" (production kernels) | "extended"
     # (hi/lo-corrected f32, ~5-10x lower force error at ~2x cost) |
     # "df32" (full two-float, ~1e-10 rel — validation/tight budgets).
     # Non-f32 tiers run the jnp df32 module on any backend.
     precision: str = dataclasses.field(default="f32", metadata=dict(static=True))
-    # eps > 0 guaranteed (known at construction): lets the Pallas kernels
-    # drop the u > 0 self-pair guard (~15% fewer VPU ops)
+    # eps > 0 guaranteed (known at construction): lets the extended-tier
+    # row sweeps drop the u > 0 self-pair guard
     softened: bool = dataclasses.field(default=False, metadata=dict(static=True))
     # ---- escape pruning (the NBODY-family "remove escapers" analog) -----
     # When set, pairwise SOURCES are the gathered subset pos[src_idx] with
@@ -123,16 +148,19 @@ class ForceModel:
                                    src_mask=src_mask)
 
     def _gathered_sources(self, pos, mass, vel=None):
-        """(src_pos, src_mass, src_vel) for the pruned source bucket."""
+        """(src_pos, src_mass, src_vel): the pruned source bucket, or all
+        particles when no pruning is configured."""
+        if not self.pruned:
+            return pos, mass, vel
         idx = self.src_idx
         sp = pos[idx]
         sm = mass[idx] * self.src_wgt.astype(mass.dtype)
         sv = vel[idx] if vel is not None else None
         return sp, sm, sv
 
-    def _resolve(self) -> str:
-        b = self.backend
-        return _default_backend() if b == "auto" else b
+    def _ops(self):
+        """The resolved backend's pairwise functions (ops.backend)."""
+        return pair_ops(self.backend, self.interpret)
 
     def at_time(self, t):
         """Bind the external field's evaluation time (models/potentials.py
@@ -159,256 +187,132 @@ class ForceModel:
     # pair feel it → the reduced system is a genuine Hamiltonian; a
     # one-sided variant (tail feels cluster, not vice versa) was measured
     # to pump O(1)·E_int per crossing through the missing reaction.
-    def _pruned_prep(self, pos, mass, vel=None):
-        """Centred-f32 operands for both sweeps (centring on the cluster-
-        bucket mean: galactocentric offsets eat the f32 mantissa,
-        SURVEY.md §7 hard part #1). Returns (rows_c, bucket_c,
-        bucket_mass_c, all_mass_c[, vrows_c, vbucket_c])."""
+    def _prep(self, pos, mass, vel=None):
+        """Operand bundles (rows, sources) for the rows-vs-sources sweeps:
+        all N rows and the source set (the pruned bucket, or all N), each
+        (pos, vel, mass) in f32 centred on the source mean (galactocentric
+        offsets eat the f32 mantissa, SURVEY.md §7 hard part #1); ``vel``
+        entries are None when not asked for."""
         sp, sm, sv = self._gathered_sources(pos, mass, vel=vel)
         center = jnp.mean(sp, axis=0)
-        rows_c = (pos - center).astype(jnp.float32)
-        bucket_c = (sp - center).astype(jnp.float32)
-        bmass_c = sm.astype(jnp.float32)
-        amass_c = mass.astype(jnp.float32)
-        if vel is None:
-            return rows_c, bucket_c, bmass_c, amass_c, None, None
-        vcenter = jnp.mean(sv, axis=0)
-        vrows_c = (vel - vcenter).astype(jnp.float32)
-        vbucket_c = (sv - vcenter).astype(jnp.float32)
-        return rows_c, bucket_c, bmass_c, amass_c, vrows_c, vbucket_c
+        rows = [(pos - center).astype(jnp.float32), None,
+                mass.astype(jnp.float32)]
+        src = [(sp - center).astype(jnp.float32), None,
+               sm.astype(jnp.float32)]
+        if vel is not None:
+            vcenter = jnp.mean(sv, axis=0)
+            rows[1] = (vel - vcenter).astype(jnp.float32)
+            src[1] = (sv - vcenter).astype(jnp.float32)
+        return tuple(rows), tuple(src)
 
-    def _hilo_rows_mod(self):
-        """Module providing the *_rows_x_hilo extended-tier entry points
-        (pallas_gravity on TPU, the jnp twin ops.df32 elsewhere — the same
-        contract the sharded extended tier dispatches on)."""
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
-            return pallas_gravity
-        from oc_nbody_tpu.ops import df32
-        return df32
-
-    def _pruned_prep_x(self, pos, mass, vel=None):
-        """Extended-tier twin of _pruned_prep: centred (hi, lo) f32 planes
-        for the rows and the bucket under ONE shared frame (the bucket
-        mean — the same global-centring invariant the sharded extended
-        tier keeps: both sweeps' hi planes must live in one frame or the
-        hi/lo error-free split breaks across the scatter)."""
+    def _prep_x(self, pos, mass, vel=None):
+        """Extended-tier twin of ``_prep``: bundles (hi, lo, vhi, vlo, G·m)
+        of centred f32 planes, rows and sources under ONE shared frame (the
+        source mean — the same global-centring invariant the sharded
+        extended tier keeps: both sweeps' hi planes must live in one frame
+        or the hi/lo error-free split breaks across the scatter)."""
         sp, sm, sv = self._gathered_sources(pos, mass, vel=vel)
 
         def split(a, c):
-            d = a.astype(jnp.float64) - c
-            hi = d.astype(jnp.float32)
-            lo = (d - hi.astype(d.dtype)).astype(jnp.float32)
-            return hi, lo
+            return df32.df_from_f64(a.astype(jnp.float64) - c)
 
-        center = jnp.mean(sp.astype(jnp.float64), axis=0)
-        rhi, rlo = split(pos, center)
-        bhi, blo = split(sp, center)
         G64 = jnp.asarray(self.G, jnp.float64)
-        gm_b = (G64 * sm.astype(jnp.float64)).astype(jnp.float32)
-        gm_all = (G64 * mass.astype(jnp.float64)).astype(jnp.float32)
-        if vel is None:
-            return rhi, rlo, bhi, blo, gm_b, gm_all, None
-        vcenter = jnp.mean(sv.astype(jnp.float64), axis=0)
-        vr = split(vel, vcenter)
-        vb = split(sv, vcenter)
-        return rhi, rlo, bhi, blo, gm_b, gm_all, (vr, vb)
+        center = jnp.mean(sp.astype(jnp.float64), axis=0)
+        rows = [*split(pos, center), None, None,
+                (G64 * mass.astype(jnp.float64)).astype(jnp.float32)]
+        src = [*split(sp, center), None, None,
+               (G64 * sm.astype(jnp.float64)).astype(jnp.float32)]
+        if vel is not None:
+            vcenter = jnp.mean(sv.astype(jnp.float64), axis=0)
+            rows[2:4] = split(vel, vcenter)
+            src[2:4] = split(sv, vcenter)
+        return tuple(rows), tuple(src)
 
-    def _pair_accel_pruned(self, pos, mass):
-        if self.precision == "extended":
-            m = self._hilo_rows_mod()
-            rhi, rlo, bhi, blo, gm_b, gm_all, _ = self._pruned_prep_x(
-                pos, mass)
-            eps32 = jnp.asarray(self.eps, jnp.float32)
-            g = dict(guarded=not self.softened)
-            a_tail = m.accel_rows_x_hilo(rhi, rlo, bhi, blo, gm_b, eps32,
-                                         **g)
-            a_cl = m.accel_rows_x_hilo(bhi, blo, rhi, rlo, gm_all, eps32,
-                                       **g)
-            return a_tail.at[self.src_idx].set(a_cl).astype(pos.dtype)
-        rows_c, bucket_c, bmass_c, amass_c, _, _ = self._pruned_prep(
-            pos, mass)
+    def _sweep_fn(self, want: str):
+        """(sweep(rows, src) -> outputs tuple, prep, self_phi(rows)) for
+        this model's tier: one rows-vs-sources evaluation on operand
+        bundles from ``_prep``/``_prep_x``; ``self_phi`` is the softened
+        self term a rows-overlapping-sources phi must have added."""
         eps32 = jnp.asarray(self.eps, jnp.float32)
-        G32 = jnp.asarray(self.G, jnp.float32)
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
-            rows_fn = functools.partial(pallas_gravity.accel_rows,
-                                        guarded=not self.softened)
-        else:
-            rows_fn = gravity.accel_rows
-        a_tail = rows_fn(rows_c, bucket_c, bmass_c, eps32, G32, self.chunk)
-        a_cl = rows_fn(bucket_c, rows_c, amass_c, eps32, G32, self.chunk)
-        return a_tail.at[self.src_idx].set(a_cl).astype(pos.dtype)
-
-    def _pair_accel_potential_pruned(self, pos, mass):
         if self.precision == "extended":
-            m = self._hilo_rows_mod()
-            rhi, rlo, bhi, blo, gm_b, gm_all, _ = self._pruned_prep_x(
-                pos, mass)
-            eps32 = jnp.asarray(self.eps, jnp.float32)
-            g = dict(guarded=not self.softened)
-            a_tail, p_tail = m.accel_potential_rows_x_hilo(
-                rhi, rlo, bhi, blo, gm_b, eps32, **g)
-            a_cl, p_cl = m.accel_potential_rows_x_hilo(
-                bhi, blo, rhi, rlo, gm_all, eps32, **g)
-            # same self-term contract as the f32 sweep below: cluster rows
-            # ARE sweep-2 sources, so their phi carries -G m/eps (cancel;
-            # self_phi with G=1 on gm = G·m gives exactly +G m/eps)
-            p_cl = p_cl + gravity.self_phi(gm_all[self.src_idx], eps32, 1.0)
-            acc = a_tail.at[self.src_idx].set(a_cl)
-            phi = p_tail.at[self.src_idx].set(p_cl)
-            return acc.astype(pos.dtype), phi.astype(pos.dtype)
-        rows_c, bucket_c, bmass_c, amass_c, _, _ = self._pruned_prep(
-            pos, mass)
-        eps32 = jnp.asarray(self.eps, jnp.float32)
-        G32 = jnp.asarray(self.G, jnp.float32)
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
-            rows_fn = functools.partial(pallas_gravity.accel_potential_rows,
-                                        guarded=not self.softened)
-        else:
-            rows_fn = gravity.accel_potential_rows
-        a_tail, p_tail = rows_fn(rows_c, bucket_c, bmass_c, eps32, G32,
-                                 self.chunk)
-        a_cl, p_cl = rows_fn(bucket_c, rows_c, amass_c, eps32, G32,
-                             self.chunk)
-        # cluster rows ARE in sweep 2's source set: their phi picked up
-        # the softened self term -G m/eps — cancel it (self_phi is 0 when
-        # eps == 0, where the guarded kernel drops the self pair instead);
-        # tail rows are not sources anywhere, so sweep 1's phi is clean.
-        # With the uniform 1/2 weight in diagnostics.energies this mixed
-        # phi sums exactly to H_pairs = PE_CC + PE_CT:
-        #   sum_C m·phi_full = 2·PE_CC + PE_CT ; sum_T m·phi_cl = PE_CT.
-        p_cl = p_cl + gravity.self_phi(amass_c[self.src_idx], eps32, G32)
-        acc = a_tail.at[self.src_idx].set(a_cl)
-        phi = p_tail.at[self.src_idx].set(p_cl)
-        return acc.astype(pos.dtype), phi.astype(pos.dtype)
+            def sweep(r, s):
+                return _rows_eval_x(*r[:4], *s, eps32, want=want,
+                                    guarded=not self.softened)
 
-    def _pair_accel_jerk_pruned(self, pos, vel, mass):
-        if self.precision == "extended":
-            m = self._hilo_rows_mod()
-            (rhi, rlo, bhi, blo, gm_b, gm_all,
-             v) = self._pruned_prep_x(pos, mass, vel=vel)
-            (vrhi, vrlo), (vbhi, vblo) = v
-            eps32 = jnp.asarray(self.eps, jnp.float32)
-            g = dict(guarded=not self.softened)
-            a_tail, j_tail = m.accel_jerk_rows_x_hilo(
-                rhi, rlo, vrhi, vrlo, bhi, blo, vbhi, vblo, gm_b, eps32,
-                **g)
-            a_cl, j_cl = m.accel_jerk_rows_x_hilo(
-                bhi, blo, vbhi, vblo, rhi, rlo, vrhi, vrlo, gm_all, eps32,
-                **g)
-            acc = a_tail.at[self.src_idx].set(a_cl)
-            jerk = j_tail.at[self.src_idx].set(j_cl)
-            return acc.astype(pos.dtype), jerk.astype(pos.dtype)
-        (rows_c, bucket_c, bmass_c, amass_c, vrows_c,
-         vbucket_c) = self._pruned_prep(pos, mass, vel=vel)
-        eps32 = jnp.asarray(self.eps, jnp.float32)
+            # gm = G·m, so self_phi with G = 1 gives exactly +G m/eps
+            return sweep, self._prep_x, \
+                lambda r: gravity.self_phi(r[-1], eps32, 1.0)
         G32 = jnp.asarray(self.G, jnp.float32)
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
 
-            def rows_fn(r, vr, s, vs, m):
-                return pallas_gravity.accel_jerk_rows(
-                    r, vr, s, vs, m, eps32, G32,
-                    guarded=not self.softened)
-        else:
-            def rows_fn(r, vr, s, vs, m):
-                return gravity.accel_jerk_rows(r, vr, s, vs, m, eps32, G32,
-                                               self.chunk)
-        a_tail, j_tail = rows_fn(rows_c, vrows_c, bucket_c, vbucket_c,
-                                 bmass_c)
-        a_cl, j_cl = rows_fn(bucket_c, vbucket_c, rows_c, vrows_c, amass_c)
-        acc = a_tail.at[self.src_idx].set(a_cl)
-        jerk = j_tail.at[self.src_idx].set(j_cl)
-        return acc.astype(pos.dtype), jerk.astype(pos.dtype)
+        def sweep(r, s):
+            return _rows_eval(r[0], r[1], s[0], s[1], s[2], eps32, G32,
+                              backend=self.backend, interpret=self.interpret,
+                              want=want, chunk=self.chunk)
+
+        return sweep, self._prep, \
+            lambda r: gravity.self_phi(r[-1], eps32, G32)
+
+    def _pruned_eval(self, pos, mass, vel=None, want: str = "accel"):
+        """The pruned two-sweep evaluation (in-jit): sweep 1 on all rows
+        against the bucket, sweep 2 on the bucket rows against all
+        sources, sweep 2 scattered over sweep 1. Pair-only outputs."""
+        sweep, prep, self_phi = self._sweep_fn(want)
+        rows, src = prep(pos, mass, vel=vel)
+        tails = sweep(rows, src)
+        cl = list(sweep(src, rows))
+        if want == "phi":
+            # cluster rows ARE in sweep 2's source set: their phi picked
+            # up the softened self term -G m/eps — cancel it (self_phi is 0
+            # when eps == 0, where the guarded sweep drops the self pair);
+            # tail rows are not sources anywhere, so sweep 1's phi is
+            # clean. With the uniform 1/2 weight in diagnostics.energies
+            # this mixed phi sums exactly to H_pairs = PE_CC + PE_CT:
+            #   sum_C m·phi_full = 2·PE_CC + PE_CT ; sum_T m·phi_cl = PE_CT.
+            r_cl = tuple(None if x is None else x[self.src_idx]
+                         for x in rows)
+            cl[1] = cl[1] + self_phi(r_cl)
+        return tuple(t.at[self.src_idx].set(c).astype(pos.dtype)
+                     for t, c in zip(tails, cl))
 
     # ---- pairwise dispatch --------------------------------------------
     def _pair_accel(self, pos, mass):
         if self.pruned:
-            return self._pair_accel_pruned(pos, mass)
+            return self._pruned_eval(pos, mass, want="accel")[0]
         if self.precision != "f32":
-            if self._resolve() == "pallas":
-                # in-register EFTs: 1.85x the f32 kernel for the extended
-                # tier, vs 13x for the XLA-compiled jnp tier (measured)
-                if self.precision == "extended":
-                    from oc_nbody_tpu.ops import pallas_gravity
-                    return pallas_gravity.accel_x(
-                        pos, mass, self.eps, self.G,
-                        guarded=not self.softened)
-                from oc_nbody_tpu.ops import pallas_df
-                return pallas_df.accel_df_pallas(
-                    pos, mass, self.eps, self.G, guarded=not self.softened)
-            from oc_nbody_tpu.ops import df32
             fn = (df32.accel_extended if self.precision == "extended"
                   else df32.accel_df)
             return fn(pos, mass, self.eps, self.G,
                       chunk=min(self.chunk, 256), guarded=True)
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
-            return pallas_gravity.accel(pos, mass, self.eps, self.G,
-                                        guarded=not self.softened)
-        return gravity.accel(pos, mass, self.eps, self.G, chunk=self.chunk)
+        return self._ops().accel(pos, mass, self.eps, self.G,
+                                 chunk=self.chunk)
 
     def _pair_accel_potential(self, pos, mass):
         if self.pruned:
-            return self._pair_accel_potential_pruned(pos, mass)
+            return self._pruned_eval(pos, mass, want="phi")
         if self.precision != "f32":
-            if self.precision == "df32" and self._resolve() == "pallas":
-                # same honest routing as jerk: emulated f64 beats the
-                # XLA-compiled jnp df tier on TPU and is exact
-                return gravity.accel_potential(
-                    pos, mass, self.eps, self.G,
-                    compute_dtype=jnp.float64, chunk=min(self.chunk, 256))
-            if self.precision == "extended" and self._resolve() == "pallas":
-                from oc_nbody_tpu.ops import pallas_gravity
-                acc, phi = pallas_gravity.accel_potential_x(
-                    pos, mass, self.eps, self.G, guarded=not self.softened)
-            else:
-                from oc_nbody_tpu.ops import df32
-                fn = (df32.accel_potential_extended
-                      if self.precision == "extended"
-                      else df32.accel_potential_df)
-                acc, phi = fn(pos, mass, self.eps, self.G,
-                              chunk=min(self.chunk, 256), guarded=True)
+            fn = (df32.accel_potential_extended
+                  if self.precision == "extended"
+                  else df32.accel_potential_df)
+            acc, phi = fn(pos, mass, self.eps, self.G,
+                          chunk=min(self.chunk, 256), guarded=True)
             # tier phi includes the softened self term -G m/eps (u =
             # eps^2 > 0 is not masked); cancel it to match the oracle
             # contract (self_phi returns +G m/eps)
             phi = phi + gravity.self_phi(mass, self.eps, self.G)
             return acc, phi
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
-            return pallas_gravity.accel_potential(pos, mass, self.eps, self.G,
-                                                  guarded=not self.softened)
-        return gravity.accel_potential(pos, mass, self.eps, self.G, chunk=self.chunk)
+        return self._ops().accel_potential(pos, mass, self.eps, self.G,
+                                           chunk=self.chunk)
 
     def _pair_accel_jerk(self, pos, vel, mass):
         if self.pruned:
-            return self._pair_accel_jerk_pruned(pos, vel, mass)
+            return self._pruned_eval(pos, mass, vel=vel, want="jerk")
         if self.precision != "f32":
-            if self._resolve() == "pallas":
-                if self.precision == "extended":
-                    from oc_nbody_tpu.ops import pallas_gravity
-                    return pallas_gravity.accel_jerk_x(
-                        pos, vel, mass, self.eps, self.G,
-                        guarded=not self.softened)
-                # df32 jerk: emulated f64 measured FASTER than the df32
-                # Pallas kernel on this hardware (12.0 vs 19.0 ms at
-                # N=8192) and exact — route accordingly; the kernel
-                # stays available as ops.pallas_df.accel_jerk_df_pallas
-                return gravity.accel_jerk(
-                    pos, vel, mass, self.eps, self.G,
-                    compute_dtype=jnp.float64, chunk=min(self.chunk, 256))
-            from oc_nbody_tpu.ops import df32
             fn = (df32.accel_jerk_extended if self.precision == "extended"
                   else df32.accel_jerk_df)
             return fn(pos, vel, mass, self.eps, self.G,
                       chunk=min(self.chunk, 256), guarded=True)
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
-            return pallas_gravity.accel_jerk(pos, vel, mass, self.eps, self.G,
-                                             guarded=not self.softened)
-        return gravity.accel_jerk(pos, vel, mass, self.eps, self.G, chunk=self.chunk)
+        return self._ops().accel_jerk(pos, vel, mass, self.eps, self.G,
+                                      chunk=self.chunk)
 
     # ---- public API ----------------------------------------------------
     def accel(self, pos, mass, vel=None):
@@ -426,149 +330,69 @@ class ForceModel:
                 acc.dtype)
         return acc
 
-    # ---- oversized-eval API (host-level, NOT jittable) -----------------
-    # For N past the single-XLA-program window (~4M+ on this class of
-    # runtime: one monolithic eval is a 60-240 s program, past watchdog /
-    # pre-emption limits) the batched chunked-sym kernels split one force
-    # evaluation over several same-shape dispatches. Used by the MacroKDK
-    # stepper and the huge-run driver path; f32 and extended Pallas tiers
-    # (df32 routes to emulated f64 everywhere and has no oversized form).
+    # ---- batched evals (host-level, NOT jittable) ----------------------
+    # One force evaluation split into several same-shape dispatches: the
+    # macro steppers (MacroKDK, MacroYoshida4, MacroHermite) evaluate
+    # 4M-8M particle forces as n_batches one-sided row chunks against all
+    # sources, with the O(N) work as small jitted programs in between.
+    # f32 and extended tiers (df32 routes to emulated f64 everywhere and
+    # has no batched form).
 
     def _require_batched(self):
-        if self.precision not in ("f32", "extended") \
-                or self._resolve() != "pallas":
+        if self.precision not in ("f32", "extended"):
             raise ValueError(
-                "batched oversized evals support the f32/extended Pallas "
-                f"tiers only (got precision={self.precision!r}, "
-                f"backend={self._resolve()!r})")
+                "batched evals support the f32 and extended tiers only "
+                f"(got precision={self.precision!r})")
 
-    # ---- pruned oversized evals (VERDICT round-3 Missing #1: escape
-    # pruning composed with the macro/batched scale machinery) ----------
-    def _pruned_batched_eval(self, pos, mass, n_batches, vel=None,
-                             want: str = "accel"):
-        """The pruned two-sweep evaluation split into ~2·n_batches bounded
-        dispatches (the macro path's watchdog contract):
+    def _batched_eval(self, pos, mass, n_batches, vel=None,
+                      want: str = "accel"):
+        """One pairwise evaluation as ~n_batches bounded dispatches:
 
-          sweep 1 — row chunks × cluster bucket   ((N/nb)·B pairs each)
-          sweep 2 — bucket rows × source chunks   (B·(N/nb) pairs each,
-                    partials summed in f64 host-side: B is small)
+          sweep 1 — row chunks × sources (the pruned bucket, or all N)
+          sweep 2 — pruned only: bucket rows × source chunks (partials
+                    summed in f64 host-side: the bucket is small)
 
-        Rows/sources are padded to a whole number of chunks so every
-        dispatch shares ONE compiled shape (zero-mass padding contributes
-        nothing; padded rows are trimmed after the concat). Returns the
-        pair-only outputs (no external field), full-N, in pos.dtype."""
-        from oc_nbody_tpu.ops import pallas_gravity as pg
-        eps32 = jnp.asarray(self.eps, jnp.float32)
-        G32 = jnp.asarray(self.G, jnp.float32)
-        g = dict(guarded=not self.softened)
+        Rows are padded to a whole number of chunks so every dispatch
+        shares ONE compiled shape (zero-mass padding contributes nothing;
+        padded rows are trimmed after the concat). Returns the pair-only
+        outputs (no external field), full-N, in pos.dtype."""
+        sweep, prep, self_phi = self._sweep_fn(want)
         n = int(pos.shape[0])
         nb = max(1, int(n_batches))
         cs = -(-n // nb)
-        # Bound each dispatch's row chunk at the VMEM-resident kernels'
-        # validated envelope (pallas_gravity.RT_MAX_ROWS — a 1M/4 chunk
-        # measured a compile-time scoped-VMEM OOM, 16.14M vs the 16.00M
-        # limit, on this chip): past the cap nb grows instead, keeping
-        # every dispatch on the fast resident path and ~tens of ms.
-        if cs > pg.RT_MAX_ROWS:
-            cs = pg.RT_MAX_ROWS
-            nb = -(-n // cs)
-        total = nb * cs
-
-        def padto(a):
-            if a.shape[0] == total:
-                return a
-            w = ((0, total - a.shape[0]),) + ((0, 0),) * (a.ndim - 1)
-            return jnp.pad(a, w)
-
-        if self.precision == "extended":
-            (rhi, rlo, bhi, blo, gm_b, gm_all,
-             v) = self._pruned_prep_x(pos, mass, vel=vel)
-            rhi, rlo, gm_all = padto(rhi), padto(rlo), padto(gm_all)
-            if v is not None:
-                (vrhi, vrlo), (vbhi, vblo) = v
-                vrhi, vrlo = padto(vrhi), padto(vrlo)
-            if want == "accel":
-                def f1(s):
-                    return (pg.accel_rows_x_hilo(rhi[s], rlo[s], bhi, blo,
-                                                 gm_b, eps32, **g),)
-
-                def f2(s):
-                    return (pg.accel_rows_x_hilo(bhi, blo, rhi[s], rlo[s],
-                                                 gm_all[s], eps32, **g),)
-            elif want == "phi":
-                def f1(s):
-                    return pg.accel_potential_rows_x_hilo(
-                        rhi[s], rlo[s], bhi, blo, gm_b, eps32, **g)
-
-                def f2(s):
-                    return pg.accel_potential_rows_x_hilo(
-                        bhi, blo, rhi[s], rlo[s], gm_all[s], eps32, **g)
-            else:
-                def f1(s):
-                    return pg.accel_jerk_rows_x_hilo(
-                        rhi[s], rlo[s], vrhi[s], vrlo[s],
-                        bhi, blo, vbhi, vblo, gm_b, eps32, **g)
-
-                def f2(s):
-                    return pg.accel_jerk_rows_x_hilo(
-                        bhi, blo, vbhi, vblo,
-                        rhi[s], rlo[s], vrhi[s], vrlo[s],
-                        gm_all[s], eps32, **g)
-            # gm = G·m, so self_phi with G = 1 gives exactly +G m/eps
-            self_phi_args = (gm_all[: n][self.src_idx], eps32, 1.0)
-        else:
-            (rows_c, bucket_c, bmass_c, amass_c, vrows_c,
-             vbucket_c) = self._pruned_prep(pos, mass, vel=vel)
-            rows_c, amass_c = padto(rows_c), padto(amass_c)
-            if vrows_c is not None:
-                vrows_c = padto(vrows_c)
-            if want == "accel":
-                def f1(s):
-                    return (pg.accel_rows(rows_c[s], bucket_c, bmass_c,
-                                          eps32, G32, **g),)
-
-                def f2(s):
-                    return (pg.accel_rows(bucket_c, rows_c[s], amass_c[s],
-                                          eps32, G32, **g),)
-            elif want == "phi":
-                def f1(s):
-                    return pg.accel_potential_rows(
-                        rows_c[s], bucket_c, bmass_c, eps32, G32, **g)
-
-                def f2(s):
-                    return pg.accel_potential_rows(
-                        bucket_c, rows_c[s], amass_c[s], eps32, G32, **g)
-            else:
-                def f1(s):
-                    return pg.accel_jerk_rows(
-                        rows_c[s], vrows_c[s], bucket_c, vbucket_c,
-                        bmass_c, eps32, G32, **g)
-
-                def f2(s):
-                    return pg.accel_jerk_rows(
-                        bucket_c, vbucket_c, rows_c[s], vrows_c[s],
-                        amass_c[s], eps32, G32, **g)
-            self_phi_args = (amass_c[: n][self.src_idx], eps32, G32)
-
+        rows, src = prep(pos, mass, vel=vel)
+        rows = tuple(None if x is None else jnp.pad(
+            x, ((0, nb * cs - n),) + ((0, 0),) * (x.ndim - 1))
+            for x in rows)
         cuts = [slice(i * cs, (i + 1) * cs) for i in range(nb)]
+
+        def part(bundle, s):
+            return tuple(None if x is None else x[s] for x in bundle)
+
         # sweep 1: independent row chunks, concatenated then trimmed
-        parts = [f1(s) for s in cuts]
-        tails = [jnp.concatenate([p[k] for p in parts])[:n]
-                 for k in range(len(parts[0]))]
-        # sweep 2: source-chunk partials, f64 accumulation (B rows only;
-        # each chunk carries at most one self term per row, so phi's
+        parts = [sweep(part(rows, s), src) for s in cuts]
+        outs = [jnp.concatenate([p[k] for p in parts])[:n]
+                for k in range(len(parts[0]))]
+        if not self.pruned:
+            if want == "phi":
+                # rows == sources: cancel the softened self term
+                outs[1] = outs[1] + self_phi(part(rows, slice(0, n)))
+            return tuple(o.astype(pos.dtype) for o in outs)
+        # sweep 2: source-chunk partials, f64 accumulation (bucket rows
+        # only; each chunk carries at most one self term per row, so phi's
         # softened self term appears exactly once in the total)
         acc2 = None
         for s in cuts:
-            t = f2(s)
+            t = sweep(src, part(rows, s))
             acc2 = ([x.astype(jnp.float64) for x in t] if acc2 is None
                     else [a + x.astype(jnp.float64)
                           for a, x in zip(acc2, t)])
         if want == "phi":
-            acc2[1] = acc2[1] + gravity.self_phi(*self_phi_args)
-        out = [tail.at[self.src_idx].set(cl.astype(tail.dtype))
-               .astype(pos.dtype) for tail, cl in zip(tails, acc2)]
-        return tuple(out)
+            r_cl = tuple(None if x is None else x[:n][self.src_idx]
+                         for x in rows)
+            acc2[1] = acc2[1] + self_phi(r_cl)
+        return tuple(o.at[self.src_idx].set(c.astype(o.dtype))
+                     .astype(pos.dtype) for o, c in zip(outs, acc2))
 
     def accel_batched(self, pos, mass, n_batches: int = 8, vel=None):
         """Total acceleration via n_batches separate dispatches. With
@@ -576,18 +400,7 @@ class ForceModel:
         steppers pass their kick-point velocities, same contract as
         accel())."""
         self._require_batched()
-        from oc_nbody_tpu.ops import pallas_gravity
-        if self.pruned:
-            (acc,) = self._pruned_batched_eval(pos, mass, n_batches,
-                                               want="accel")
-        elif self.precision == "extended":
-            acc = pallas_gravity.accel_sym_x_chunked_batched(
-                pos, mass, self.eps, self.G, guarded=not self.softened,
-                n_batches=n_batches)
-        else:
-            acc = pallas_gravity.accel_sym_chunked_batched(
-                pos, mass, self.eps, self.G, guarded=not self.softened,
-                n_batches=n_batches)
+        (acc,) = self._batched_eval(pos, mass, n_batches, want="accel")
         if self.external is not None:
             acc = acc + _ext_accel_jit(self.external, pos)
         if self.friction is not None:
@@ -602,24 +415,7 @@ class ForceModel:
     def accel_potential_batched(self, pos, mass, n_batches: int = 8):
         """(accel, phi_pair, phi_ext) via n_batches separate dispatches."""
         self._require_batched()
-        from oc_nbody_tpu.ops import pallas_gravity
-        if self.pruned:
-            acc, phi_pair = self._pruned_batched_eval(pos, mass, n_batches,
-                                                      want="phi")
-        elif self.precision == "extended":
-            acc, phi_pair = \
-                pallas_gravity.accel_potential_sym_x_chunked_batched(
-                    pos, mass, self.eps, self.G, guarded=not self.softened,
-                    n_batches=n_batches)
-            # extended-family RAW phi contract: the softened self term is
-            # included when eps > 0 — cancel it like _pair_accel_potential
-            phi_pair = phi_pair + jax.jit(gravity.self_phi)(
-                mass, self.eps, self.G)
-        else:
-            acc, phi_pair = \
-                pallas_gravity.accel_potential_sym_chunked_batched(
-                    pos, mass, self.eps, self.G, guarded=not self.softened,
-                    n_batches=n_batches)
+        acc, phi_pair = self._batched_eval(pos, mass, n_batches, want="phi")
         if self.external is not None:
             acc = acc + _ext_accel_jit(self.external, pos)
             phi_ext = _ext_phi_jit(self.external, pos)
@@ -631,18 +427,8 @@ class ForceModel:
         """(accel, jerk) via n_batches separate dispatches (a host-stepped
         Hermite's force evaluation), incl. the external (v·∇)a_ext term."""
         self._require_batched()
-        from oc_nbody_tpu.ops import pallas_gravity
-        if self.pruned:
-            acc, jerk = self._pruned_batched_eval(pos, mass, n_batches,
-                                                  vel=vel, want="jerk")
-        elif self.precision == "extended":
-            acc, jerk = pallas_gravity.accel_jerk_sym_x_chunked_batched(
-                pos, vel, mass, self.eps, self.G,
-                guarded=not self.softened, n_batches=n_batches)
-        else:
-            acc, jerk = pallas_gravity.accel_jerk_sym_chunked_batched(
-                pos, vel, mass, self.eps, self.G,
-                guarded=not self.softened, n_batches=n_batches)
+        acc, jerk = self._batched_eval(pos, mass, n_batches, vel=vel,
+                                       want="jerk")
         if self.external is not None:
             a_ext, da_ext = _ext_accel_jerk_jit(self.external, pos, vel)
             acc = acc + a_ext
@@ -708,10 +494,8 @@ class ForceModel:
         """accel_jerk_on_rows minus the friction term (so the pruned
         branches below can recurse without double-adding the drag).
 
-        Precision tiers: extended+pallas uses the in-register EFT kernel;
-        every OTHER non-f32 combination (df32 on any backend, extended on
-        jnp) evaluates the rows in emulated/native f64 — exact, and the
-        honest winner on both backends for small row sets (ADVICE round-2:
+        Precision tiers: every non-f32 tier evaluates the rows in f64 —
+        exact, and the cheap choice for small row sets (ADVICE round-2:
         these used to fall through to f32 silently).
 
         Escape pruning: ``rows_mask`` (1 = cluster member, 0 = tail;
@@ -761,18 +545,6 @@ class ForceModel:
                               jnp.where(any_tail, 1, 0)).astype(jnp.int32)
             return jax.lax.switch(
                 which, [eval_cluster, eval_tail, eval_mixed], 0)
-        if self.precision == "extended" and self._resolve() == "pallas":
-            # extended-tier active-row evaluation (block timesteps);
-            # accel_jerk_rows_x centres and hi/lo-splits internally
-            from oc_nbody_tpu.ops import pallas_gravity
-            acc, jerk = pallas_gravity.accel_jerk_rows_x(
-                pos_rows, vel_rows, src_pos, src_vel, src_mass,
-                self.eps, self.G, guarded=not self.softened)
-            if self.external is not None:
-                a_ext, da_ext = self.external.accel_jerk_ext(pos_rows, vel_rows)
-                acc = acc + a_ext
-                jerk = jerk + da_ext
-            return acc, jerk
         if self.precision != "f32":
             f64 = jnp.float64
             acc, jerk = gravity.accel_jerk_rows(
@@ -796,14 +568,8 @@ class ForceModel:
         mass_c = jnp.asarray(src_mass, jnp.float32)
         eps32 = jnp.asarray(self.eps, jnp.float32)
         G32 = jnp.asarray(self.G, jnp.float32)
-        if self._resolve() == "pallas":
-            from oc_nbody_tpu.ops import pallas_gravity
-            acc, jerk = pallas_gravity.accel_jerk_rows(
-                rows_c, vrows_c, src_c, svel_c, mass_c, eps32, G32,
-                guarded=not self.softened)
-        else:
-            acc, jerk = gravity.accel_jerk_rows(
-                rows_c, vrows_c, src_c, svel_c, mass_c, eps32, G32, self.chunk)
+        acc, jerk = self._ops().accel_jerk_rows(
+            rows_c, vrows_c, src_c, svel_c, mass_c, eps32, G32, self.chunk)
         acc = acc.astype(pos_rows.dtype)
         jerk = jerk.astype(pos_rows.dtype)
         if self.external is not None:
@@ -816,9 +582,10 @@ class ForceModel:
 def make_force_model(eps, G=1.0, external: Optional[Potential] = None,
                      backend: str = "auto", chunk: int = 1024,
                      precision: str = "f32",
-                     friction=None) -> ForceModel:
+                     friction=None, interpret: bool = False) -> ForceModel:
     if precision not in ("f32", "extended", "df32"):
         raise ValueError(f"unknown force precision {precision!r}")
+    resolve_backend(backend, interpret=interpret)  # unknown names raise
     return ForceModel(
         eps=jnp.asarray(eps, jnp.float64),
         G=jnp.asarray(G, jnp.float64),
@@ -828,4 +595,5 @@ def make_force_model(eps, G=1.0, external: Optional[Potential] = None,
         softened=bool(float(eps) > 0),
         precision=precision,
         friction=friction,
+        interpret=interpret,
     )

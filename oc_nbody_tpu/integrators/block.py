@@ -13,8 +13,8 @@ O(active × N) kernel cost shrinks with the active count while every shape
 stays static.
 
 **Integer time grid.** Per-particle times and steps are stored as int64
-multiples of dt_min = dt_max / 2^(n_levels-1). On TPU, float64 is emulated
-and `2.0**(-k)` is NOT bit-exact, which breaks `t_i + dt_i == t_next`
+multiples of dt_min = dt_max / 2^(n_levels-1). Where float64 is emulated,
+`2.0**(-k)` is NOT bit-exact, which breaks `t_i + dt_i == t_next`
 equality matching (measured: duplicate near-equal rungs and straggler
 activations). Integer bookkeeping makes activity masks, rung alignment
 (`t % (2 dt) == 0`) and block synchronisation exact by construction —
@@ -96,7 +96,7 @@ class BlockHermite:
     # window). The Aarseth criterion is blind only where softening bends
     # the force (r ≲ few eps); unwindowed, the nearest-neighbour fly-by
     # cap drags ~half the cluster 5+ rungs deeper for no accuracy gain
-    # (measured on configs/binaries_8k.toml, bench/binaries_pairdt.json).
+    # (measured on configs/binaries_8k.toml, bench/binaries_pairdt.py).
     pair_r_max: float = 4.0
 
     @property
@@ -305,7 +305,7 @@ class BlockHermite:
             def branch(xp, vp, mass, active):
                 # top_k(active) puts active rows first (ties keep original
                 # order): fixed-size compaction without nonzero's cumsum
-                # (scoped-VMEM overflow at N≳32k) or a bool sort.
+                # or a bool sort.
                 _, idx = jax.lax.top_k(active.astype(jnp.int32), b)
                 valid = jnp.arange(b) < jnp.sum(active)
                 # fill rows (inactive, results discarded) carry a 0.5

@@ -163,11 +163,11 @@ def _kdk_close(state, acc_new, dt):
 class MacroKDK(LeapfrogKDK):
     """Host-stepped KDK for N past the single-XLA-program window.
 
-    One in-jit force eval at N = 4M is a ~60 s XLA program and at 8M
-    ~240 s — past runtime watchdogs / pre-emption windows — so the
-    superstep design inverts: each force evaluation runs as
-    ``n_batches`` separate same-shape dispatches
-    (ForceModel.accel_batched → the batched chunked-sym kernels) and
+    One in-jit force eval at N = 4M-8M is a long XLA program — past
+    runtime watchdogs / pre-emption windows — so the superstep design
+    inverts: each force evaluation runs as ``n_batches`` separate
+    same-shape dispatches (ForceModel.accel_batched → one-sided row
+    chunks against all sources) and
     the kick/drift updates are small O(N) jitted programs between them.
     Same trajectory as LeapfrogKDK up to f32 pair-summation order.
     Subclasses LeapfrogKDK so reached/checkpoint_aux/restore — the

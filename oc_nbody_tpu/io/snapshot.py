@@ -1,4 +1,4 @@
-"""Snapshot / checkpoint I/O (HDF5) and the diagnostics time-series table.
+"""Snapshot / checkpoint I/O and the diagnostics time-series table.
 
 Capability parity: SURVEY.md §2.10 — the reference writes snapshots that its
 analysis scripts read back (BASELINE.json:5 "snapshot I/O"). The exact
@@ -8,17 +8,19 @@ added if the reference ever materialises.
 
 Snapshots double as checkpoints (SURVEY.md §5 failure-recovery): they carry
 the full integrator aux state (accelerations, jerks, per-particle timestep
-state, step counter) so a resumed run continues bit-identically. Writes are
-atomic (temp file + os.replace) so a crash mid-write never corrupts the
-latest checkpoint.
+state, step counter) so a resumed run continues bit-identically. Every file
+is written atomically (temp file + os.replace) so a crash mid-write never
+corrupts the latest checkpoint or the diagnostics table.
 
-Schema v1:
-  /particles/{pos,vel,mass,ids}      f64 (N,3), f64 (N,3), f32 (N,), i32 (N,)
-  /particles attrs: n
-  /integrator/<aux arrays>           integrator-kind-specific
-  /integrator attrs: kind
-  /units attrs: length_pc, mass_msun, time_myr   (optional)
-  root attrs: schema_version, time, step, config_json (optional), rng_key
+Container: one numpy ``.npz`` archive per file (numpy only — no HDF5
+library), read with ``allow_pickle=False``. Schema v1, flattened: ``/``
+separates a group from an array, ``@`` an owner from an attribute.
+  particles/{pos,vel,mass,ids}       f64 (N,3), f64 (N,3), f32 (N,), i32 (N,)
+  particles@n
+  integrator/<aux arrays>            integrator-kind-specific
+  integrator@kind
+  units@{length_pc,mass_msun,time_myr}           (optional)
+  @schema_version, @time, @step, @config_json (optional), @rng_key, ...
 """
 from __future__ import annotations
 
@@ -26,10 +28,10 @@ import dataclasses
 import glob
 import json
 import os
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,30 +65,46 @@ def _materialize(state, aux, attrs):
     return data, aux_np, attrs_np
 
 
-def _write_file(path, data, aux_np, integrator_kind, units, attrs_np):
+def write_npz(path: str, arrays: dict) -> str:
+    """Atomically write ``arrays`` (name -> array-like) as one .npz."""
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with h5py.File(tmp, "w") as f:
-        g = f.create_group("particles")
-        for k in ("pos", "vel", "mass", "ids"):
-            g.create_dataset(k, data=data[k])
-        g.attrs["n"] = data["pos"].shape[0]
-        gi = f.create_group("integrator")
-        if integrator_kind is not None:
-            gi.attrs["kind"] = integrator_kind
-        for k, v in aux_np.items():
-            gi.create_dataset(k, data=v)
-        if units is not None:
-            gu = f.create_group("units")
-            for k, v in units.as_dict().items():
-                gu.attrs[k] = v
-        f.attrs["schema_version"] = SCHEMA_VERSION
-        for k, v in attrs_np.items():
-            if isinstance(v, (dict, list)):
-                v = json.dumps(v)
-            f.attrs[k] = v
+    with open(tmp, "wb") as f:
+        np.savez(f, **{k: np.asarray(v) for k, v in arrays.items()})
     os.replace(tmp, path)
     return path
+
+
+def read_npz(path: str) -> dict:
+    """Every array of an .npz written by ``write_npz`` (0-d arrays stay
+    0-d; ``scalar()`` unwraps them)."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def scalar(v):
+    """A 0-d array as its Python value (str, int, float); others as-is."""
+    v = np.asarray(v)
+    return v.item() if v.ndim == 0 else v
+
+
+def _write_file(path, data, aux_np, integrator_kind, units, attrs_np):
+    arrays = {f"particles/{k}": data[k] for k in ("pos", "vel", "mass",
+                                                 "ids")}
+    arrays["particles@n"] = data["pos"].shape[0]
+    if integrator_kind is not None:
+        arrays["integrator@kind"] = integrator_kind
+    for k, v in aux_np.items():
+        arrays[f"integrator/{k}"] = v
+    if units is not None:
+        for k, v in units.as_dict().items():
+            arrays[f"units@{k}"] = v
+    arrays["@schema_version"] = SCHEMA_VERSION
+    for k, v in attrs_np.items():
+        if isinstance(v, (dict, list)):
+            v = json.dumps(v)
+        arrays[f"@{k}"] = v
+    return write_npz(path, arrays)
 
 
 def write_snapshot(
@@ -103,32 +121,31 @@ def write_snapshot(
 
 
 def read_snapshot(path: str, state_dtype=jnp.float64) -> Snapshot:
-    with h5py.File(path, "r") as f:
-        version = int(f.attrs.get("schema_version", 1))
-        if version > SCHEMA_VERSION:
-            # partially-matching groups from a future schema would restore
-            # silently wrong integrator state — reject instead
-            raise ValueError(
-                f"snapshot {path!r} has schema v{version}; this reader "
-                f"understands up to v{SCHEMA_VERSION}")
-        g = f["particles"]
-        state = make_state(
-            pos=np.asarray(g["pos"]),
-            vel=np.asarray(g["vel"]),
-            mass=np.asarray(g["mass"]),
-            ids=np.asarray(g["ids"]),
-            time=float(f.attrs["time"]),
-            state_dtype=state_dtype,
-        )
-        aux, kind = {}, None
-        if "integrator" in f:
-            gi = f["integrator"]
-            kind = gi.attrs.get("kind")
-            aux = {k: np.asarray(gi[k]) for k in gi.keys()}
-        units = None
-        if "units" in f:
-            units = UnitSystem.from_dict(dict(f["units"].attrs))
-        attrs = dict(f.attrs)
+    z = read_npz(path)
+    version = int(scalar(z.get("@schema_version", 1)))
+    if version > SCHEMA_VERSION:
+        # partially-matching groups from a future schema would restore
+        # silently wrong integrator state — reject instead
+        raise ValueError(
+            f"snapshot {path!r} has schema v{version}; this reader "
+            f"understands up to v{SCHEMA_VERSION}")
+    state = make_state(
+        pos=z["particles/pos"],
+        vel=z["particles/vel"],
+        mass=z["particles/mass"],
+        ids=z["particles/ids"],
+        time=float(scalar(z["@time"])),
+        state_dtype=state_dtype,
+    )
+    kind = scalar(z["integrator@kind"]) if "integrator@kind" in z else None
+    aux = {k[len("integrator/"):]: v for k, v in z.items()
+           if k.startswith("integrator/")}
+    units = None
+    unit_attrs = {k[len("units@"):]: scalar(v) for k, v in z.items()
+                  if k.startswith("units@")}
+    if unit_attrs:
+        units = UnitSystem.from_dict(unit_attrs)
+    attrs = {k[1:]: scalar(v) for k, v in z.items() if k.startswith("@")}
     return Snapshot(state=state, aux=aux, integrator_kind=kind,
                     units=units, attrs=attrs)
 
@@ -144,16 +161,16 @@ def latest_snapshot(out_dir: str) -> Optional[str]:
     """Most recent valid snapshot file in a run directory (for resume).
 
     Ordered by the PARSED index: lexicographic order breaks past index
-    99999 ("snapshot_100000.h5" < "snapshot_99999.h5"), which would
+    99999 ("snapshot_100000.npz" < "snapshot_99999.npz"), which would
     resume from an older state and then overwrite the true latest."""
-    paths = sorted(glob.glob(os.path.join(out_dir, "snapshot_*.h5")),
+    paths = sorted(glob.glob(os.path.join(out_dir, "snapshot_*.npz")),
                    key=_snapshot_index)
     for p in reversed(paths):
         try:
-            with h5py.File(p, "r") as f:
-                if "particles" in f:
+            with np.load(p, allow_pickle=False) as z:
+                if "particles/pos" in z.files:
                     return p
-        except OSError:
+        except (OSError, ValueError, zipfile.BadZipFile):
             continue
     return None
 
@@ -161,8 +178,9 @@ def latest_snapshot(out_dir: str) -> Optional[str]:
 class SnapshotWriter:
     """Numbered snapshots plus an appendable diagnostics table in a run dir.
 
-    Diagnostics go to ``diagnostics.h5`` as one resizable 1-D dataset per
-    scalar column (SURVEY.md §5 metrics/observability).
+    Diagnostics go to ``diagnostics.npz`` as one float64 1-D array per
+    scalar column (SURVEY.md §5 metrics/observability), rewritten
+    atomically at every append.
     """
 
     def __init__(self, out_dir: str, units: Optional[UnitSystem] = None,
@@ -171,14 +189,14 @@ class SnapshotWriter:
         self.units = units
         self.config_json = config_json
         os.makedirs(out_dir, exist_ok=True)
-        self._diag_path = os.path.join(out_dir, "diagnostics.h5")
-        # one writer thread: HDF5 writes (~0.5 s at large N) overlap the next
-        # superstep on device; ordering is preserved, atomicity unchanged
+        self._diag_path = os.path.join(out_dir, "diagnostics.npz")
+        # one writer thread: snapshot writes overlap the next superstep on
+        # device; ordering is preserved, atomicity unchanged
         self._pool = ThreadPoolExecutor(max_workers=1) if async_io else None
         self._pending = []
 
     def snapshot_path(self, index: int) -> str:
-        return os.path.join(self.out_dir, f"snapshot_{index:05d}.h5")
+        return os.path.join(self.out_dir, f"snapshot_{index:05d}.npz")
 
     def write(self, index: int, state: ParticleState, aux=None,
               integrator_kind=None, step: int = 0, rng_key=None,
@@ -193,7 +211,7 @@ class SnapshotWriter:
         if self.config_json is not None:
             attrs["config_json"] = self.config_json
         if rng_key is not None:
-            # stored as a native h5py array attribute (uint32 key data)
+            # stored as a uint32 key-data array
             attrs["rng_key"] = np.asarray(rng_key)
         path = self.snapshot_path(index)
         data, aux_np, attrs_np = _materialize(state, aux, attrs)
@@ -226,33 +244,23 @@ class SnapshotWriter:
             raise first_err
 
     def append_diagnostics(self, row: dict) -> None:
-        with h5py.File(self._diag_path, "a") as f:
-            # columns appearing mid-series (resume across a code version
-            # that added diagnostics) are NaN-backfilled, and columns the
-            # current row does NOT carry (a flag turned off on resume) are
-            # NaN-padded — every dataset leaves this call at the same
-            # length, so the whole table stays row-aligned in time
-            n_prev = max((f[k].shape[0] for k in f.keys()), default=0)
-            for k, v in row.items():
-                v = np.asarray(jax.device_get(v), np.float64)
-                if k not in f:
-                    d = f.create_dataset(k, shape=(n_prev,), maxshape=(None,),
-                                         dtype=np.float64, chunks=(256,))
-                    if n_prev:
-                        d[:] = np.nan
-                d = f[k]
-                n0 = d.shape[0]
-                d.resize((n_prev + 1,))
-                if n0 < n_prev:   # legacy misaligned table: NaN the gap
-                    d[n0:n_prev] = np.nan
-                d[-1] = float(v)
-            for k in f.keys():
-                if k not in row:
-                    d = f[k]
-                    n0 = d.shape[0]
-                    if n0 < n_prev + 1:
-                        d.resize((n_prev + 1,))
-                        d[n0:] = np.nan
+        table = self.read_diagnostics()
+        # columns appearing mid-series (resume across a code version that
+        # added diagnostics) are NaN-backfilled, and columns the current
+        # row does NOT carry (a flag turned off on resume) are NaN-padded
+        # — every column leaves this call at the same length, so the whole
+        # table stays row-aligned in time
+        n_prev = max((v.shape[0] for v in table.values()), default=0)
+        out = {}
+        for k in set(table) | set(row):
+            old = table.get(k, np.zeros((0,), np.float64))
+            col = np.full((n_prev + 1,), np.nan)
+            col[:old.shape[0]] = old
+            if k in row:
+                col[-1] = float(np.asarray(jax.device_get(row[k]),
+                                           np.float64))
+            out[k] = col
+        write_npz(self._diag_path, out)
 
     def truncate_diagnostics(self, t_resume: float, atol: float = 1e-9) -> None:
         """Drop rows with time >= t_resume (strictly before the resume time).
@@ -266,34 +274,28 @@ class SnapshotWriter:
         if not os.path.exists(self._diag_path):
             return
         try:
-            f = h5py.File(self._diag_path, "a")
-        except OSError:
-            # diagnostics.h5 is mutated in place (unlike the atomic
-            # snapshots), so a crash mid-append can corrupt it; the
-            # snapshot checkpoint is the authoritative state, so resume
-            # must proceed — move the corrupt table aside and start fresh
+            table = self.read_diagnostics()
+        except (OSError, ValueError, zipfile.BadZipFile):
+            # the snapshot checkpoint is the authoritative state, so resume
+            # must proceed past an unreadable table — move it aside and
+            # start fresh
             corrupt = self._diag_path + ".corrupt"
             os.replace(self._diag_path, corrupt)
             print(f"warning: diagnostics table unreadable; moved to "
                   f"{corrupt} (resume continues from the snapshot)")
             return
-        with f:
-            if "time" not in f:
-                return
-            t = np.asarray(f["time"])
-            mask = t < t_resume - atol
-            keep = int(mask.nonzero()[0][-1] + 1) if mask.any() else 0
-            for k in f.keys():
-                d = f[k]
-                if d.shape[0] > keep:
-                    d.resize((keep,))
+        if "time" not in table:
+            return
+        mask = table["time"] < t_resume - atol
+        keep = int(mask.nonzero()[0][-1] + 1) if mask.any() else 0
+        write_npz(self._diag_path, {k: v[:keep] for k, v in table.items()})
 
     def has_outputs(self) -> bool:
         """True if out_dir holds any diagnostics or snapshot files."""
         if os.path.exists(self._diag_path):
             return True
         return any(
-            name.startswith("snapshot_") and name.endswith(".h5")
+            name.startswith("snapshot_") and name.endswith(".npz")
             for name in os.listdir(self.out_dir))
 
     def reset_outputs(self) -> None:
@@ -302,21 +304,17 @@ class SnapshotWriter:
         A FRESH (non-resume) run into an existing directory must not leave
         stale artifacts: appended diagnostics rows make the time series
         repeat from t=0 (duplicated times corrupt plots/drift analysis),
-        and leftover higher-index ``snapshot_*.h5`` from a longer previous
+        and leftover higher-index ``snapshot_*.npz`` from a longer previous
         run would be picked up by ``latest_snapshot`` on a later --resume,
         silently resuming the OLD run."""
         if os.path.exists(self._diag_path):
             os.remove(self._diag_path)
         for name in os.listdir(self.out_dir):
             if name.startswith("snapshot_") and name.endswith(
-                    (".h5", ".h5.tmp")):  # .tmp: orphan of a crashed write
+                    (".npz", ".npz.tmp")):  # .tmp: orphan of a crashed write
                 os.remove(os.path.join(self.out_dir, name))
 
     def read_diagnostics(self) -> dict:
-        out = {}
         if not os.path.exists(self._diag_path):
-            return out
-        with h5py.File(self._diag_path, "r") as f:
-            for k in f.keys():
-                out[k] = np.asarray(f[k])
-        return out
+            return {}
+        return read_npz(self._diag_path)

@@ -16,7 +16,7 @@ orbit decays. This matches how NBODY6tt applies its tidal-tensor-frame
 drag. No reference implementation exists to cite (/root/reference is
 empty — SURVEY.md §0).
 
-TPU-native details:
+Implementation details:
 
 * ρ(x) comes from the host potential's autodiff Laplacian (Poisson:
   ρ = ∇²Φ/4πG — ``Potential.density``), so ANY host composition gives a

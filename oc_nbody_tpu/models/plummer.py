@@ -9,7 +9,7 @@ Aarseth–Hénon–Wielen (1974) inverse-CDF + rejection recipe:
   * isotropic directions for both.
 
 Everything is jnp + jax.random: deterministic given the PRNG key,
-vectorised, and runs on TPU or CPU identically.
+vectorised, and runs on any backend identically.
 """
 from __future__ import annotations
 

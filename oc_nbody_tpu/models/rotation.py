@@ -16,7 +16,7 @@ angular momentum about z. ``eta = 1`` gives maximal rotation for the
 given model (every star orbits prograde); intermediate values align a
 random subset.
 
-TPU-first: one O(N) masked elementwise update, no host branching.
+Device-friendly: one O(N) masked elementwise update, no host branching.
 """
 from __future__ import annotations
 

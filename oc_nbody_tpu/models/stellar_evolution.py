@@ -23,7 +23,7 @@ module provides the standard minimal prescription:
   the NBODY6-style winds+supernova split, with the same zero-extra-state
   machinery (see below).
 
-TPU-first design: the death times, remnant masses, and kick vectors are
+Device-first design: the death times, remnant masses, and kick vectors are
 all PRECOMPUTED host-side at scene build (O(N), f64 numpy) into a
 ``SEVTables`` pytree; the runtime update is one O(N) elementwise pass —
 no data-dependent control flow, no host branching, and **idempotent**:

@@ -1,9 +1,10 @@
 """Double-f32 ("df32") arithmetic and extended-precision pairwise forces.
 
-TPU v5e has no native f64 (JAX emulates it in software at large cost).
-This module provides the standard error-free-transformation toolbox
-(Knuth two-sum, Dekker split/two-prod — exact on XLA f32, verified on CPU
-and TPU) and two force tiers built on it:
+Accuracy tiers between the f32 sweep and full f64, for hardware whose f64
+rate is far below its f32 rate. This module provides the standard
+error-free-transformation toolbox (Knuth two-sum, Dekker split/two-prod —
+exact on XLA f32; tests/unit/test_df32.py and chip_smoke.py check them
+under jit on the CPU and on the GPU) and two force tiers built on it:
 
   * ``accel_extended`` — cheap hybrid: positions carried as (hi, lo) f32
     splits of the f64 input; pair separations get the lo-correction
@@ -13,16 +14,15 @@ and TPU) and two force tiers built on it:
     compensated. ~2x the ops of the f32 kernel.
   * ``accel_df`` — full df32: every pair quantity (separation, r²,
     rsqrt via df-Newton, weights, accumulation) is a (hi, lo) pair.
-    ~48-bit effective mantissa; ~10x the f32 ops but still far cheaper
-    than emulated f64 on this hardware.
+    ~48-bit effective mantissa; ~10x the f32 ops.
 
 The f32 production kernels' per-pair error (~1-4e-6 rel, dominated by the
 hardware rsqrt + f32 rounding) is the one accuracy term the round-2
 measurements could not reduce (ROADMAP: refining the rsqrt alone does
 nothing because r² itself is f32). These tiers attack exactly that term.
 
-All functions are pure jnp — they run identically on CPU (tests) and TPU,
-and serve as the oracle for any future Pallas variant.
+All functions are pure jnp — XLA compiles them for every backend — and
+serve as the reference for any future kernel of these tiers.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 
 # --------------------------------------------------------------------------
-# error-free transformations (exact on XLA f32; verified on CPU + TPU)
+# error-free transformations (exact on XLA f32; checked under jit)
 # --------------------------------------------------------------------------
 
 def two_sum(a, b):
@@ -89,8 +89,14 @@ def two_prod(a, b):
 
 def df_from_f64(a):
     """Split an f64 array into an f32 (hi, lo) pair (x64 must be on for
-    f64 inputs; f32 inputs get lo = 0)."""
-    hi = a.astype(jnp.float32)
+    f64 inputs; f32 inputs get lo = 0).
+
+    hi passes through an optimization barrier: XLA:GPU treats the
+    narrowing-then-widening convert pair f64 -> f32 -> f64 as removable
+    (excess precision is allowed by default), which makes lo == 0 and
+    silently drops every tier to plain f32 (measured on the H100: the
+    extended and df32 accel errors equal the f32 path's)."""
+    hi = jax.lax.optimization_barrier(a.astype(jnp.float32))
     lo = (a - hi.astype(a.dtype)).astype(jnp.float32)
     return hi, lo
 
@@ -132,9 +138,9 @@ def df_rsqrt(x):
     Newton (y <- y*(3 - x*y^2)/2, quadratic: err' ~ 1.5 err^2).
 
     The plain-f32 step is NOT optional: under jit the fused `lax.rsqrt`
-    lowers to the hardware estimate (~2e-4 rel on AVX512, ~1.1e-6 on the
-    TPU VPU — measured; eager CPU dispatch hides this behind a libm
-    path), and one df step from 2e-4 only reaches ~6e-8. f32-step first
+    lowers to the hardware estimate (~2e-4 rel on AVX512, measured; eager
+    CPU dispatch hides this behind a libm path), and one df step from
+    2e-4 only reaches ~6e-8. f32-step first
     brings the seed to f32 accuracy, the df step then lands at ~1e-14."""
     y0 = jax.lax.rsqrt(x[0])
     y0 = y0 * (jnp.float32(1.5)
@@ -278,11 +284,9 @@ def accel_jerk_extended(pos, vel, mass, eps=0.0, G=1.0, chunk: int = 1024,
 # extended tier, pre-split (hi, lo)-plane entry points
 # --------------------------------------------------------------------------
 #
-# jnp twins of ops/pallas_gravity's *_x_hilo functions (same contract:
-# all-f32 in/out on planes the caller split under ONE global centring).
-# They serve two roles: oracle for the Pallas kernels (interpret-mode
-# equivalence tests) and the jnp backend of the sharded extended tier
-# (parallel/force.py on CPU meshes).
+# All-f32 in/out on planes the caller split under ONE global centring:
+# the extended tier's rows-vs-sources sweeps for the sharded, pruned and
+# batched paths (parallel/force.py, forces.ForceModel) on every backend.
 
 @functools.partial(jax.jit, static_argnames=("chunk", "guarded"))
 def accel_rows_x_hilo(rhi, rlo, shi, slo, gm, eps, chunk: int = 256,
@@ -338,8 +342,7 @@ def accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm,
 # --------------------------------------------------------------------------
 # extended-tier cross-pair functions (halfring sharded mode): one sweep
 # computes BOTH the action on set A and the reaction on set B for two
-# DISJOINT sets — the jnp twins of ops.pallas_gravity's *_cross_pair_x_hilo
-# wrappers (same signatures/contract; oracle for the emulated-mesh tests).
+# DISJOINT sets (tested against the one-sided sweeps on the emulated mesh).
 # Inputs are pre-split (hi, lo) f32 planes under ONE global centring and
 # gm = G·mass f32, like the *_rows_x_hilo family above.
 # --------------------------------------------------------------------------
@@ -544,8 +547,7 @@ def accel_df(pos, mass, eps=0.0, G=1.0, chunk: int = 256,
              guarded: bool = True):
     """Full-df32 pairwise accel; f64 in/out. Per-pair error ~1e-10 rel
     (measured vs the f64 oracle incl. close pairs) — the high-accuracy
-    tier for validation runs and tight drift budgets, still much cheaper
-    than emulated f64 on TPU."""
+    tier for validation runs and tight drift budgets."""
     hi, lo, gm_hi, gm_lo, e2h, e2l = _df_prepare(pos, mass, eps, G)
     n = pos.shape[0]
     nb = -(-n // chunk)

@@ -11,15 +11,15 @@ computing forces on a row block exerted by an arbitrary source set. The
 single-chip functions call them with rows == sources; the multi-chip path
 (parallel/force.py) calls them with rows = the local shard and sources =
 all-gathered or ring-permuted shards (SURVEY.md §3.5); the Pallas kernels
-(ops/pallas_gravity.py) implement the same signatures on the TPU and are
-drop-in replacements.
+(ops/triton_gravity.py) implement the same signatures on the GPU and are
+drop-in replacements (ops/backend.py chooses).
 
 Three tiers:
   * ``*_direct``    — full (N, N) broadcast in the input dtype; the in-repo
                       oracle (SURVEY.md §4.1), small N / tests only.
   * ``*_rows`` etc. — blocked jnp: row-chunked ``lax.map`` so memory stays
                       O(chunk * N); pairwise math in float32.
-  * Pallas kernels  — ops.pallas_gravity, the production TPU path.
+  * Pallas kernels  — ops.triton_gravity, the GPU path.
 
 Numerical notes (measured; SURVEY.md §6):
   * separations use direct subtraction (no |r_i|²+|r_j|²-2r_i·r_j
@@ -315,8 +315,7 @@ def pair_timescale_rows(pos_rows, vel_rows, mass_rows, src_pos, src_vel,
 # --------------------------------------------------------------------------
 # cross-pair tier (halfring sharded mode): one sweep computes BOTH the
 # action on set A and the reaction on set B for two DISJOINT particle sets
-# (two mesh shards) — the jnp twin of ops.pallas_gravity's cross-pair
-# wrappers (same signatures; oracle for the emulated-mesh tests). The
+# (two mesh shards) — the halfring mode's cross-shard sweep. The
 # pairwise weights w = gm·(r²+eps²)^{-3/2} are computed once and reduced
 # along both axes, so the pair count is genuinely halved vs two one-sided
 # rows calls. Blocked over A rows with lax.scan carrying the B accumulator;

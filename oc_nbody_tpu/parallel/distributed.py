@@ -1,17 +1,16 @@
 """Multi-host (multi-process) initialisation.
 
-Capability parity: SURVEY.md §5 "distributed communication backend" — the
-TPU-native replacement for MPI/NCCL is JAX's built-in multi-controller
-runtime: each host runs the same program, `jax.distributed.initialize()`
-wires the hosts together, and the SAME `shard_map`/collective code used on
-one pod slice then spans hosts transparently (DCN for cross-host edges, ICI
-within a slice). No code elsewhere in this package is host-count-aware.
+Capability parity: SURVEY.md §5 "distributed communication backend" —
+JAX's built-in multi-controller runtime in place of MPI: each host runs the
+same program, `jax.distributed.initialize()` wires the hosts together, and
+the SAME `shard_map`/collective code used on one host's GPUs then spans
+hosts transparently (XLA hands the collectives to NCCL). No code elsewhere
+in this package is host-count-aware.
 
-On Cloud TPU pods the coordinator/process info is auto-detected from the
-environment, so ``initialize_multihost()`` with no arguments is sufficient.
-This module cannot be exercised in the single-host dev environment; the
-multi-device logic it feeds is covered by tests/distributed on an emulated
-mesh (SURVEY.md §4.3).
+Without a cluster manager nothing tells JAX of the cluster: pass
+``coordinator_address`` ("host:port"), ``num_processes`` and ``process_id``.
+The multi-device logic it feeds is covered by tests/distributed on an
+emulated mesh (SURVEY.md §4.3).
 """
 from __future__ import annotations
 
@@ -25,9 +24,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          process_id: Optional[int] = None) -> None:
     """Join the multi-host runtime (no-op if already initialised).
 
-    With no arguments, autodetects on Cloud TPU. For manual clusters pass
-    ``coordinator_address="host:port"``, ``num_processes`` and
-    ``process_id`` (the jax.distributed contract).
+    With no arguments JAX autodetects only under a cluster manager it
+    knows; otherwise pass ``coordinator_address="host:port"``,
+    ``num_processes`` and ``process_id`` (the jax.distributed contract).
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -1,33 +1,26 @@
-"""Multi-chip force engine: row-sharded O(N²) with ICI collectives.
+"""Multi-device force engine: row-sharded O(N²) with collectives.
 
 Capability parity: SURVEY.md §2.12 / §3.5 — BASELINE.json:11 "force-tile
-rows + ICI allreduce". Two source strategies, both expressed with
-`shard_map` over a 1-D mesh:
+rows + allreduce". Three source strategies, all expressed with `shard_map`
+over a 1-D mesh (XLA hands the collectives to NCCL on GPUs):
 
-  * ``allgather`` — each chip owns N/D target rows and all-gathers the full
-    source set once per evaluation (one ICI all_gather; best for small/mid N
-    where sources fit comfortably in HBM).
+  * ``allgather`` — each device owns N/D target rows and all-gathers the
+    full source set once per evaluation (one all_gather; best for small/mid
+    N where sources fit comfortably in device memory).
   * ``ring``      — sources stay sharded and circulate via `ppermute` around
-    the ICI ring while each chip accumulates partial forces blockwise —
+    the ring while each device accumulates partial forces blockwise —
     structurally identical to ring attention (blockwise accumulation over a
     permuted source shard; SURVEY.md §5 "long-context"). D-1 permutes, no
     replication: the large-N path.
-  * ``rdma``      — the ring expressed as ONE Pallas kernel per evaluation:
-    source shards circulate via explicit `make_async_remote_copy` RDMAs
-    that overlap the tile sweep, with a semaphore handshake bounding ring
-    skew (ops/pallas_ring.py; accel, accel+potential and accel+jerk).
-    Pallas backend only.
   * ``halfring``  — PAIR-SYMMETRIC ring: each unordered shard pair is
     computed once (the cross-pair kernels return action AND reaction),
     so sources circulate only ⌈(D-1)/2⌉ hops and one ``psum_scatter``
-    returns the accumulated reactions to their owners — the multi-chip
-    form of the single-chip pair-symmetric kernels' Newton's-3rd-law
-    halving (≈2× less pairwise compute than ``ring`` at large D, for
+    returns the accumulated reactions to their owners — Newton's-3rd-law
+    halving across shards (≈2× less pairwise compute than ``ring`` at large D, for
     (D/2)+1 collectives vs D-1). See ``_halfring_sweep``.
 
-The per-shard compute is the same rows-vs-sources kernel as single-chip
-(ops.gravity / ops.pallas_gravity), so sharded == single-device up to f32
-summation order (tested in tests/distributed on an 8-device CPU mesh;
+The per-shard compute is the same rows-vs-sources sweep as single-chip
+(ops.backend.pair_ops), so sharded == single-device up to f32 summation order (tested in tests/distributed on an 8-device CPU mesh;
 SURVEY.md §4.3).
 
 `ShardedForce` duck-types ForceModel (accel / accel_potential / accel_jerk),
@@ -45,7 +38,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from oc_nbody_tpu.models.potentials import Potential
-from oc_nbody_tpu.ops import gravity
+from oc_nbody_tpu.ops import df32, gravity
+from oc_nbody_tpu.ops.backend import pair_ops, resolve_backend
 from oc_nbody_tpu.parallel.mesh import AXIS
 
 
@@ -55,9 +49,8 @@ def _round_up(n: int, m: int) -> int:
 
 def _two_sum(acc, comp, partial):
     """Kahan step for the ring accumulation across D source shards: the
-    cross-shard sum is the one f32 accumulation the kernels cannot see
-    (they compensate only across their own source tiles), so compensate it
-    here — O(N/D) extra flops per ring step vs the O(N^2/D^2) kernel.
+    cross-shard sum is an f32 accumulation outside the per-shard sweep, so
+    compensate it here — O(N/D) extra flops per ring step vs the O(N^2/D^2) kernel.
 
     The rounded sum passes through ``optimization_barrier``: this loop
     compiles through XLA (shard_map/fori_loop), whose algebraic simplifier
@@ -97,7 +90,7 @@ def _halfring_sweep(ax, d, locals_, circ0, diag_out, cross_fn):
     Cross-shard partial sums are Kahan-compensated with ``_two_sum`` like
     the ring mode (the psum_scatter-internal reduction over ~D/2 partials
     stays plain f32 — unavoidable inside the collective, and small next
-    to the per-shard tile sums the kernels already compensate).
+    to the per-shard sweeps' own f32 sums).
 
     ``locals_``/``circ0``: tuples of per-shard arrays (pos[, vel], mass).
     ``cross_fn(rows, circ) -> (outs_on_rows, outs_on_circ)`` with tuples
@@ -199,6 +192,9 @@ class ShardedForce:
     mode: str = dataclasses.field(default="allgather", metadata=dict(static=True))
     backend: str = dataclasses.field(default="auto", metadata=dict(static=True))
     chunk: int = dataclasses.field(default=1024, metadata=dict(static=True))
+    # run the Pallas kernels through the interpreter (tests on the CPU)
+    interpret: bool = dataclasses.field(default=False,
+                                        metadata=dict(static=True))
     # pairwise arithmetic tier on the mesh: "f32" | "extended" (hi/lo
     # planes split ONCE under the global centring, then sharded — see
     # _split_global). The df32 tier stays single-chip (make_sharded_force
@@ -254,23 +250,12 @@ class ShardedForce:
 
     # ---- rows-vs-sources kernel dispatch ------------------------------
     def _rows_kernel(self):
-        if self.backend == "pallas" or (
-            self.backend == "auto" and jax.default_backend() == "tpu"
-        ):
-            from oc_nbody_tpu.ops import pallas_gravity
-            return pallas_gravity
-        return gravity
+        """The resolved backend's pairwise functions (ops.backend)."""
+        return pair_ops(self.backend, self.interpret)
 
     def _hilo_kernels(self):
-        """Module providing the *_x_hilo extended-tier entry points
-        (pallas_gravity on TPU, its jnp twin ops.df32 elsewhere — same
-        contract, oracle-tested in tests/distributed)."""
-        if self.backend == "pallas" or (
-            self.backend == "auto" and jax.default_backend() == "tpu"
-        ):
-            from oc_nbody_tpu.ops import pallas_gravity
-            return pallas_gravity
-        from oc_nbody_tpu.ops import df32
+        """Module providing the *_x_hilo extended-tier entry points (the
+        XLA-compiled ops.df32, oracle-tested in tests/distributed)."""
         return df32
 
     def _split_global(self, arr):
@@ -278,10 +263,7 @@ class ShardedForce:
         centring before shard_map: every chip's hi plane must share one
         frame, or the hi/lo invariant breaks as source slabs circulate
         the ring (each shard would need the others' centres)."""
-        c = arr - jnp.mean(arr, axis=0)
-        hi = c.astype(jnp.float32)
-        lo = (c - hi.astype(c.dtype)).astype(jnp.float32)
-        return hi, lo
+        return df32.df_from_f64(arr - jnp.mean(arr, axis=0))
 
     def _gm32(self, mass):
         return (jnp.asarray(self.G, jnp.float64)
@@ -505,7 +487,7 @@ class ShardedForce:
         contract as ForceModel's pruned dispatch — only tail–tail dropped):
 
           sweep 1 — LOCAL rows × replicated bucket (no collective)
-          sweep 2 — bucket × the local source shard, one psum over ICI
+          sweep 2 — bucket × the local source shard, one psum
 
         then the replicated sweep-2 results scatter into each shard's own
         rows (src_idx ∈ [off, off+S) with positive weight; others route to
@@ -530,9 +512,7 @@ class ShardedForce:
             m = self._hilo_kernels()
 
             def split(a, c):
-                d = a.astype(jnp.float64) - c
-                hi = d.astype(jnp.float32)
-                return hi, (d - hi.astype(d.dtype)).astype(jnp.float32)
+                return df32.df_from_f64(a.astype(jnp.float64) - c)
 
             rhi, rlo = split(pos, center)
             bhi, blo = split(sp, center)
@@ -684,30 +664,21 @@ class ShardedForce:
         def shard_fn(pos_l, mass_l):
             if self.mode == "halfring":
                 # pair-symmetric: each unordered shard pair computed once
-                # (diag via the size-aware sym dispatcher, crosses via the
-                # cross-pair kernels, reactions returned by psum_scatter).
-                # The jnp kernels honour the configured row-chunk (memory
-                # bound); the Pallas wrappers tile internally.
-                ckw = {"chunk": self.chunk} if k is gravity else {}
-                diag = (k.accel(pos_l, mass_l, eps32, G32, **ckw),)
+                # (diag via the backend's one-sided sweep, crosses via the
+                # jnp cross-pair sweeps, reactions returned by
+                # psum_scatter)
+                diag = (k.accel(pos_l, mass_l, eps32, G32, chunk=self.chunk),)
 
                 def cross(rows, circ):
-                    aA, aB = k.accel_cross_pair(rows[0], circ[0],
-                                                rows[1], circ[1],
-                                                eps32, G32, **ckw)
+                    aA, aB = gravity.accel_cross_pair(rows[0], circ[0],
+                                                      rows[1], circ[1],
+                                                      eps32, G32,
+                                                      chunk=self.chunk)
                     return (aA,), (aB,)
 
                 return _halfring_sweep(
                     ax, self.mesh.devices.size, (pos_l, mass_l),
                     (pos_l, mass_l), diag, cross)[0]
-            if self.mode == "rdma":
-                # whole ring inside ONE Pallas kernel: explicit
-                # make_async_remote_copy RDMAs overlapped with the tile
-                # sweep (ops/pallas_ring.py). Pallas-only path.
-                from oc_nbody_tpu.ops import pallas_ring
-                return pallas_ring.accel_ring(
-                    pos_l, mass_l, eps32, G32, axis=ax,
-                    d=self.mesh.devices.size)
             if self.mode == "ring":
                 d = self.mesh.devices.size
                 perm = [(i, (i + 1) % d) for i in range(d)]
@@ -763,23 +734,18 @@ class ShardedForce:
                 # self-term corrected; cross phi has no self term (disjoint
                 # sets) — so the outer self_phi addition is skipped for
                 # this mode (see below)
-                ckw = {"chunk": self.chunk} if k is gravity else {}
-                diag = k.accel_potential(pos_l, mass_l, eps32, G32, **ckw)
+                diag = k.accel_potential(pos_l, mass_l, eps32, G32,
+                                         chunk=self.chunk)
 
                 def cross(rows, circ):
-                    aA, pA, aB, pB = k.accel_potential_cross_pair(
+                    aA, pA, aB, pB = gravity.accel_potential_cross_pair(
                         rows[0], circ[0], rows[1], circ[1], eps32, G32,
-                        **ckw)
+                        chunk=self.chunk)
                     return (aA, pA), (aB, pB)
 
                 return _halfring_sweep(
                     ax, self.mesh.devices.size, (pos_l, mass_l),
                     (pos_l, mass_l), diag, cross)
-            if self.mode == "rdma":
-                from oc_nbody_tpu.ops import pallas_ring
-                return pallas_ring.accel_potential_ring(
-                    pos_l, mass_l, eps32, G32, axis=ax,
-                    d=self.mesh.devices.size)
             if self.mode == "ring":
                 d = self.mesh.devices.size
                 perm = [(i, (i + 1) % d) for i in range(d)]
@@ -843,23 +809,18 @@ class ShardedForce:
 
         def shard_fn(pos_l, vel_l, mass_l):
             if self.mode == "halfring":
-                ckw = {"chunk": self.chunk} if k is gravity else {}
-                diag = k.accel_jerk(pos_l, vel_l, mass_l, eps32, G32, **ckw)
+                diag = k.accel_jerk(pos_l, vel_l, mass_l, eps32, G32,
+                                    chunk=self.chunk)
 
                 def cross(rows, circ):
-                    aA, jA, aB, jB = k.accel_jerk_cross_pair(
+                    aA, jA, aB, jB = gravity.accel_jerk_cross_pair(
                         rows[0], rows[1], circ[0], circ[1],
-                        rows[2], circ[2], eps32, G32, **ckw)
+                        rows[2], circ[2], eps32, G32, chunk=self.chunk)
                     return (aA, jA), (aB, jB)
 
                 return _halfring_sweep(
                     ax, self.mesh.devices.size, (pos_l, vel_l, mass_l),
                     (pos_l, vel_l, mass_l), diag, cross)
-            if self.mode == "rdma":
-                from oc_nbody_tpu.ops import pallas_ring
-                return pallas_ring.accel_jerk_ring(
-                    pos_l, vel_l, mass_l, eps32, G32, axis=ax,
-                    d=self.mesh.devices.size)
             if self.mode == "ring":
                 d = self.mesh.devices.size
                 perm = [(i, (i + 1) % d) for i in range(d)]
@@ -902,7 +863,7 @@ class ShardedForce:
                            src_mass, rows_mask=None):
         """Block-timestep active-row evaluation on the mesh: the (small) row
         set is replicated, sources stay row-sharded, and each chip's partial
-        (accel, jerk) is psum-reduced over ICI — the BASELINE.json:11
+        (accel, jerk) is psum-reduced — the BASELINE.json:11
         allreduce applied to the active subset (SURVEY.md §2 EP analog).
 
         ``rows_mask`` (round-5: escape pruning composes with the sharded
@@ -1014,9 +975,7 @@ class ShardedForce:
             vcenter = jnp.mean(sv.astype(jnp.float64), axis=0)
 
             def split(a, c):
-                d = a.astype(jnp.float64) - c
-                hi = d.astype(jnp.float32)
-                return hi, (d - hi.astype(d.dtype)).astype(jnp.float32)
+                return df32.df_from_f64(a.astype(jnp.float64) - c)
 
             rhi, rlo = split(pos_rows, center)
             vrhi, vrlo = split(vel_rows, vcenter)
@@ -1052,16 +1011,14 @@ class ShardedForce:
         """Extended-tier active-row evaluation on the mesh: rows and
         sources split under the SOURCE-mean centring (both hi planes in
         one frame), rows replicated, source planes row-sharded, per-chip
-        partials psum-reduced over ICI."""
+        partials psum-reduced."""
         m = self._hilo_kernels()
         eps32 = jnp.asarray(self.eps, jnp.float32)
         center = jnp.mean(src_pos, axis=0)
         vcenter = jnp.mean(src_vel, axis=0)
 
         def split(a, c):
-            d = a - c
-            hi = d.astype(jnp.float32)
-            return hi, (d - hi.astype(d.dtype)).astype(jnp.float32)
+            return df32.df_from_f64(a - c)
 
         rhi, rlo = split(pos_rows, center)
         rvhi, rvlo = split(vel_rows, vcenter)
@@ -1095,8 +1052,12 @@ class ShardedForce:
 def make_sharded_force(eps, G=1.0, external=None, mesh: Mesh = None,
                        mode: str = "allgather", backend: str = "auto",
                        chunk: int = 1024, precision: str = "f32",
-                       friction=None) -> ShardedForce:
-    if mode not in ("allgather", "ring", "rdma", "halfring"):
+                       friction=None, interpret: bool = False) -> ShardedForce:
+    if mode == "rdma":
+        raise ValueError(
+            "mesh mode 'rdma' was removed: its in-kernel remote copies have "
+            "no GPU form. Use mode='ring', the same ring over collectives")
+    if mode not in ("allgather", "ring", "halfring"):
         raise ValueError(f"unknown sharded-force mode {mode!r}")
     if precision not in ("f32", "extended"):
         # df32 stays single-chip: on the mesh the honest routing already
@@ -1106,18 +1067,7 @@ def make_sharded_force(eps, G=1.0, external=None, mesh: Mesh = None,
         raise ValueError(
             f"sharded force precision {precision!r} not supported; use "
             "'f32' or 'extended' (df32 is single-chip only)")
-    if mode == "rdma" and precision == "extended":
-        raise ValueError(
-            "the extended tier rides the XLA collectives (ring/allgather); "
-            "mode='rdma' is f32-only for now")
-    if mode == "rdma" and backend == "jnp":
-        # the rdma path IS a Pallas kernel (ops/pallas_ring.py); with the
-        # jnp backend it would import and Mosaic-lower anyway and fail much
-        # later with an opaque lowering error (VERDICT round-2 W6)
-        raise ValueError(
-            "mode='rdma' requires the Pallas backend (the ring is a single "
-            "Pallas kernel, ops/pallas_ring.py); use backend='pallas'/'auto' "
-            "or mode='ring' for the XLA-collective path")
+    resolve_backend(backend, interpret=interpret)  # unknown names raise
     if mesh is None:
         from oc_nbody_tpu.parallel.mesh import make_mesh
         mesh = make_mesh()
@@ -1125,5 +1075,5 @@ def make_sharded_force(eps, G=1.0, external=None, mesh: Mesh = None,
         eps=jnp.asarray(eps, jnp.float64),
         G=jnp.asarray(G, jnp.float64),
         external=external, mesh=mesh, mode=mode, backend=backend, chunk=chunk,
-        precision=precision, friction=friction,
+        precision=precision, friction=friction, interpret=interpret,
     )

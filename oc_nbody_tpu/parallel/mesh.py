@@ -1,7 +1,9 @@
-"""Device mesh construction for multi-chip runs.
+"""Device mesh construction for multi-device runs.
 
-Capability parity: SURVEY.md §2.12 — rebuild-only component ("shard
-force-tile rows across a TPU mesh", BASELINE.json:11). A 1-D mesh is the
+Capability parity: SURVEY.md §2.12 — rebuild-only component (force-tile
+rows sharded across a device mesh, BASELINE.json:11). Every GPU of a host
+reaches every other at the same NVLink rate, so the mesh follows the
+algorithm alone. A 1-D mesh is the
 right shape for direct N-body: the N×N interaction matrix is sharded by
 target rows (the DP analog), with sources either all-gathered (small N) or
 ring-permuted (large N; the ring/flash-attention analog — SURVEY.md §5

@@ -106,7 +106,7 @@ def _merge_reinit_carry(new_carry, old_carry, keep_steps: bool):
     startup rule at every boundary was measured to triple the block
     drift. ``keep_steps=False`` (SEV mass-change boundaries) takes the
     elementwise MIN of the re-derived startup steps and the pre-jump
-    ones: attribution measured (bench/flagship_attrib.json, round 4) the
+    ones: attribution measured (bench/flagship_attrib.py, round 4) the
     flagship's +9.0e-4/interval ledger jump is the post-death transient
     integrating on startup rungs one level coarser than the running
     Aarseth rungs (halving eta_init drops it to 7.6e-6; eta, kicks,
@@ -341,12 +341,11 @@ def _run(cfg: SimConfig, resume: bool = False,
             carry = _reinit(carry, sev.update(carry.state))
 
     # donate the carry: the old state buffers are dead after each superstep,
-    # halving HBM pressure for large N (SURVEY.md §5 "donated-buffer
+    # halving device-memory pressure for large N (SURVEY.md §5 "donated-buffer
     # aliasing" — the stale-buffer risk is covered by tests/io determinism
     # and resume tests, which run the same jitted advance repeatedly).
     # Dispatches are step-bounded: very long single XLA programs can trip
-    # runtime watchdogs (observed as TPU worker crashes on ~70k-step block
-    # dispatches); the host loops until each output time is reached.
+    # runtime watchdogs; the host loops until each output time is reached.
     if host_stepping:
         # MacroKDK: advance_to_bounded IS the dispatch-splitting host
         # loop — wrapping it in jit would rebuild the one monolithic
@@ -371,9 +370,9 @@ def _run(cfg: SimConfig, resume: bool = False,
     # dispatches trip the runtime watchdog, tiny ones pay dispatch
     # overhead). Sizes are a small static set so at most a few recompiles.
     # The ladder STARTS AT 1: the first dispatch probes the per-step cost
-    # before committing to a size — at N=1M a single step is ~7 s, and the
-    # old 256-step opener was a ~30 min XLA program that crashed the TPU
-    # worker (watchdog) before any measurement existed (round-3 c6 run).
+    # before committing to a size — at N=1M a single step takes seconds,
+    # and a 256-step opener would be a program of many minutes before any
+    # measurement existed.
     _sizes = [s for s in (1, 16, 256, 4096, 65536) if s <= max_steps]
     _sizes = _sizes or [max_steps]
     _target_s = 20.0

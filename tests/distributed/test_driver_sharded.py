@@ -1,6 +1,6 @@
 """Full driver (config -> scene -> run) on the 8-device emulated mesh:
 the config-5 composition END-TO-END, not just the ShardedForce unit
-(SURVEY.md §4.3 — 'same test re-runs unchanged on a real v5e-8').
+(SURVEY.md §4.3 — the same test re-runs unchanged on real devices).
 """
 import os
 
@@ -44,7 +44,7 @@ def test_driver_on_mesh_matches_single_device(tmp_path, mode):
                                np.asarray(res1.state.pos), atol=1e-9)
     assert abs(res.diagnostics["dE_over_E"][-1]) < 1e-5
     assert os.path.exists(os.path.join(
-        _mesh_cfg(tmp_path, mode).output.out_dir, "diagnostics.h5"))
+        _mesh_cfg(tmp_path, mode).output.out_dir, "diagnostics.npz"))
 
 
 def test_driver_on_mesh_with_stellar_evolution(tmp_path):
@@ -116,24 +116,17 @@ def test_driver_on_mesh_with_time_dependent_external(tmp_path):
     assert abs(res8.diagnostics["E_ext"][-1]) < 1e-10
 
 
-def test_driver_rdma_mode_end_to_end(tmp_path, monkeypatch):
-    """mode='rdma' through the WHOLE driver (scene builds the sharded
-    force, run() steps it) with the Pallas ring kernels under the TPU
-    interpreter."""
-    import oc_nbody_tpu.ops.pallas_ring as pr
+def test_driver_refuses_rdma_mode(tmp_path):
+    """The removed mode='rdma' is refused when a config names it — at
+    load, at a --set override, and by a SimConfig built in code — with a
+    message that points to the ring mode."""
+    from oc_nbody_tpu.config import apply_overrides, load_config
 
-    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
-    for fn in (pr.accel_ring, pr.accel_potential_ring, pr.accel_jerk_ring):
-        fn.clear_cache()
-    try:
-        cfg = _mesh_cfg(tmp_path, "rdma", backend="pallas", n=64)
-        cfg.output.t_end = 0.125
-        cfg.output.diag_every = 0.0625
-        cfg.output.snap_every = 0.125
-        res = run(cfg)
-        assert np.all(np.isfinite(np.asarray(res.state.pos)))
-        assert abs(res.diagnostics["dE_over_E"][-1]) < 1e-4
-    finally:
-        for fn in (pr.accel_ring, pr.accel_potential_ring,
-                   pr.accel_jerk_ring):
-            fn.clear_cache()
+    path = tmp_path / "rdma.toml"
+    path.write_text('[mesh]\nn_devices = 8\nmode = "rdma"\n')
+    with pytest.raises(ValueError, match="rdma.*ring"):
+        load_config(str(path))
+    with pytest.raises(ValueError, match="rdma.*ring"):
+        apply_overrides(SimConfig(), ["mesh.mode=rdma"])
+    with pytest.raises(ValueError, match="rdma.*ring"):
+        run(_mesh_cfg(tmp_path, "rdma", n=64))

@@ -2,12 +2,12 @@
 
 The halfring mode computes each unordered shard pair ONCE (cross-pair
 kernels return action AND reaction) and delivers the reactions with one
-psum_scatter — the multi-chip form of the single-chip pair-symmetric
-kernels' Newton's-3rd-law halving (parallel/force.py _halfring_sweep).
+psum_scatter — Newton's-3rd-law halving across shards
+(parallel/force.py _halfring_sweep).
 These tests pin sharded ≡ single-device oracle for every op at even D
 (exercises the quadrant-split shared step), odd D (pure circulation), and
-the D=1/D=2 edge cases, on both the jnp backend and the Pallas cross-pair
-kernels through the interpreter (SURVEY.md §4.3).
+the D=1/D=2 edge cases, on both the jnp backend and the Pallas (Triton)
+diagonal sweep through the interpreter (SURVEY.md §4.3).
 """
 import jax
 import jax.numpy as jnp
@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import oc_nbody_tpu.ops.pallas_gravity as pg
 from oc_nbody_tpu.ops import gravity
 from oc_nbody_tpu.parallel import make_sharded_force
 
@@ -96,34 +95,15 @@ def test_halfring_momentum_conservation():
 
 
 class TestPallasHalfring:
-    """The production composition: Pallas cross-pair kernels inside the
-    halfring shard_map, via the interpreter."""
-
-    @pytest.fixture(autouse=True)
-    def _interpret(self, monkeypatch):
-        monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
-        # production tiles pad 100-particle shards to 384+ — shrink
-        for k in ("T_SYM", "T_SYMA", "T_SYMP", "SYM_MIN",
-                  "T_SYMX", "T_SYMXP", "T_SYMXJ"):
-            monkeypatch.setattr(pg, k, 32)
-        jitted = (pg.accel, pg.accel_potential, pg.accel_jerk,
-                  pg.accel_cross_pair, pg.accel_potential_cross_pair,
-                  pg.accel_jerk_cross_pair, pg.accel_rows_x_hilo,
-                  pg.accel_potential_rows_x_hilo, pg.accel_jerk_rows_x_hilo,
-                  pg.accel_cross_pair_x_hilo,
-                  pg.accel_potential_cross_pair_x_hilo,
-                  pg.accel_jerk_cross_pair_x_hilo)
-        for fn in jitted:
-            fn.clear_cache()
-        yield
-        for fn in jitted:
-            fn.clear_cache()
+    """The production composition: the Pallas (Triton) diagonal sweep
+    with the jnp cross-pair sweeps inside the halfring shard_map, via the
+    interpreter."""
 
     @pytest.mark.parametrize("d", [2, 8])
     def test_accel(self, d):
         pos, _, mass = _cluster(n=100)
         sf = make_sharded_force(eps=EPS, mesh=_mesh(d), mode="halfring",
-                                backend="pallas")
+                                backend="pallas", interpret=True)
         out = jax.jit(sf.accel)(pos, mass)
         ref = gravity.accel(pos, mass, eps=EPS)
         scale = float(jnp.max(jnp.linalg.norm(ref, axis=1)))
@@ -133,7 +113,7 @@ class TestPallasHalfring:
     def test_potential_and_jerk(self):
         pos, vel, mass = _cluster(n=96)
         sf = make_sharded_force(eps=EPS, mesh=_mesh(8), mode="halfring",
-                                backend="pallas")
+                                backend="pallas", interpret=True)
         acc, phi, _ = jax.jit(sf.accel_potential)(pos, mass)
         acc_ref, phi_ref = gravity.accel_potential(pos, mass, eps=EPS)
         np.testing.assert_allclose(
@@ -146,13 +126,14 @@ class TestPallasHalfring:
             atol=3e-6 * float(jnp.max(jnp.linalg.norm(jj_ref, axis=1))))
 
     def test_extended_tier(self):
-        """Extended halfring through the Pallas cross-pair-x kernels
-        (interpret) ≡ the df32 oracle."""
+        """Extended halfring with the Pallas backend selected (the tier's
+        hi/lo sweeps are the XLA-compiled df32 twins) ≡ the df32 oracle."""
         from oc_nbody_tpu.ops import df32
 
         pos, vel, mass = _cluster(n=96, seed=9)
         sf = make_sharded_force(eps=EPS, mesh=_mesh(8), mode="halfring",
-                                backend="pallas", precision="extended")
+                                backend="pallas", interpret=True,
+                                precision="extended")
         out = jax.jit(sf.accel)(pos, mass)
         ref = df32.accel_extended(pos, mass, eps=EPS, chunk=64)
         scale = float(jnp.max(jnp.linalg.norm(ref, axis=1)))

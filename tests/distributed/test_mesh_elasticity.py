@@ -25,7 +25,7 @@ def test_restart_on_different_mesh(tmp_path):
     # run 40 steps on the 8-device mesh, checkpoint
     s8 = LeapfrogKDK(force=sf8, dt=dt)
     c8 = jax.jit(s8.advance, static_argnums=1)(s8.init(state), 40)
-    path = str(tmp_path / "mesh8.h5")
+    path = str(tmp_path / "mesh8.npz")
     write_snapshot(path, c8.state, aux=s8.checkpoint_aux(c8),
                    integrator_kind="kdk")
 
@@ -47,7 +47,7 @@ def test_restart_on_larger_mesh(tmp_path):
     f1 = make_force_model(eps=1.0 / 32, backend="jnp")
     s1 = LeapfrogKDK(force=f1, dt=1.0 / 256)
     c1 = jax.jit(s1.advance, static_argnums=1)(s1.init(state), 30)
-    path = str(tmp_path / "mesh1.h5")
+    path = str(tmp_path / "mesh1.npz")
     write_snapshot(path, c1.state, aux=s1.checkpoint_aux(c1),
                    integrator_kind="kdk")
 

@@ -6,9 +6,7 @@ ADVICE round-2 (medium): parallel/force._two_sum compiles through XLA
 degrading the Kahan step to plain f32 summation. The fix pins the rounded
 sum with ``jax.lax.optimization_barrier`` (same as ops/df32.two_sum).
 
-This is the ring-mode analogue of
-tests/unit/test_pallas_interpret.py::test_compensated_accumulation_beats_plain:
-with the barrier in place, compensated accumulation across D=8 source
+With the barrier in place, compensated accumulation across D=8 source
 shards must track the f64 oracle strictly better than plain summation —
 an assertion that FAILS if the compensation is simplified away, because
 then both variants produce identical results.

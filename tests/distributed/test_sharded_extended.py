@@ -1,31 +1,22 @@
-"""Extended precision tier on the mesh + HBM-streamed extended kernels.
+"""Extended precision tier on the mesh.
 
-Round-2 VERDICT Missing #1 (the top next-round item): the extended tier
-was single-chip VMEM-resident only — `build_scene` hard-rejected
-precision != f32 on a mesh, and the hi/lo kernels had no streamed
-variant. These tests pin the closure:
+Round-2 VERDICT Missing #1: `build_scene` hard-rejected precision != f32
+on a mesh. These tests pin the closure:
 
-  * sharded-extended (jnp twin AND Pallas-interpret, allgather AND ring)
-    ≡ the single-chip `ops/df32.accel_extended` oracle;
+  * sharded-extended (jnp backend AND the Pallas backend selected,
+    allgather AND ring) ≡ the single-chip `ops/df32.accel_extended`
+    oracle — the tier's hi/lo sweeps are the XLA-compiled df32 twins on
+    every backend;
   * sharded-extended error vs an f64 oracle is far below sharded-f32's
     (the capability claim, not just self-consistency);
-  * the streamed hi/lo kernels (sources past STREAM_N ride the second
-    grid dimension) ≡ the resident hi/lo kernels;
   * the extended active-row (block-timestep) psum path matches its twin;
   * build_scene now accepts precision="extended" with a mesh.
-
-Interpret-mode tolerances are relaxed: the Pallas interpreter executes
-kernel bodies through XLA CPU, whose algebraic simplifier degrades the
-in-kernel EFTs (~1e-7 instead of the 2e-10-class hardware behaviour —
-measured, see ops/pallas_df.py); hardware equivalence is asserted by
-bench/validate_pallas.py.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import oc_nbody_tpu.ops.pallas_gravity as pg
 from oc_nbody_tpu.ops import df32, gravity
 from oc_nbody_tpu.parallel import make_mesh, make_sharded_force
 
@@ -41,19 +32,6 @@ def _cluster(n=100, seed=7):
     vel = 0.3 * jax.random.normal(kv, (n, 3), jnp.float64)
     mass = jax.random.uniform(km, (n,), jnp.float64, 0.5, 1.5) / n
     return pos, vel, mass
-
-
-@pytest.fixture
-def interpret(monkeypatch):
-    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
-    jitted = (pg.accel_rows_x_hilo, pg.accel_potential_rows_x_hilo,
-              pg.accel_jerk_rows_x_hilo, pg.accel_x, pg.accel_potential_x,
-              pg.accel_jerk_rows_x)
-    for fn in jitted:
-        fn.clear_cache()
-    yield
-    for fn in jitted:
-        fn.clear_cache()
 
 
 # ---- sharded extended == single-chip extended oracle ---------------------
@@ -72,10 +50,11 @@ def test_sharded_extended_accel_jnp(mode):
 
 
 @pytest.mark.parametrize("mode", ["allgather", "ring"])
-def test_sharded_extended_accel_pallas_interpret(interpret, mode):
+def test_sharded_extended_accel_pallas_interpret(mode):
     pos, _, mass = _cluster(n=96)
     sf = make_sharded_force(eps=0.05, mesh=make_mesh(8), mode=mode,
-                            backend="pallas", precision="extended")
+                            backend="pallas", interpret=True,
+                            precision="extended")
     out = jax.jit(sf.accel)(pos, mass)
     ref = df32.accel_extended(pos, mass, eps=0.05, chunk=64)
     scale = float(jnp.max(jnp.linalg.norm(ref, axis=1)))
@@ -161,54 +140,10 @@ def test_sharded_extended_active_rows_jnp():
                                atol=2e-6 * j_scale, rtol=0)
 
 
-# ---- streamed hi/lo kernels ----------------------------------------------
-
-def test_streamed_extended_matches_resident(interpret, monkeypatch):
-    """Sources past STREAM_N take the streamed grid; force it low so both
-    paths run in interpret mode on the same inputs."""
-    pos, vel, mass = _cluster(n=300, seed=5)
-    center = jnp.mean(pos, axis=0)
-    hi, lo = df32.df_from_f64(pos - center)
-    vhi, vlo = df32.df_from_f64(vel - jnp.mean(vel, axis=0))
-    gm = jnp.asarray(mass, jnp.float32)
-    eps = jnp.float32(0.05)
-
-    res_a = pg.accel_rows_x_hilo(hi, lo, hi, lo, gm, eps)
-    res_pa, res_pp = pg.accel_potential_rows_x_hilo(hi, lo, hi, lo, gm, eps)
-    res_ja, res_jj = pg.accel_jerk_rows_x_hilo(hi, lo, vhi, vlo, hi, lo,
-                                               vhi, vlo, gm, eps)
-
-    monkeypatch.setattr(pg, "STREAM_N", 128)   # 300 sources -> streamed
-    for fn in (pg.accel_rows_x_hilo, pg.accel_potential_rows_x_hilo,
-               pg.accel_jerk_rows_x_hilo):
-        fn.clear_cache()
-    str_a = pg.accel_rows_x_hilo(hi, lo, hi, lo, gm, eps)
-    str_pa, str_pp = pg.accel_potential_rows_x_hilo(hi, lo, hi, lo, gm, eps)
-    str_ja, str_jj = pg.accel_jerk_rows_x_hilo(hi, lo, vhi, vlo, hi, lo,
-                                               vhi, vlo, gm, eps)
-    for fn in (pg.accel_rows_x_hilo, pg.accel_potential_rows_x_hilo,
-               pg.accel_jerk_rows_x_hilo):
-        fn.clear_cache()
-
-    scale = float(jnp.max(jnp.abs(res_a)))
-    np.testing.assert_allclose(np.asarray(str_a), np.asarray(res_a),
-                               atol=3e-7 * scale, rtol=0)
-    np.testing.assert_allclose(np.asarray(str_pa), np.asarray(res_pa),
-                               atol=3e-7 * scale, rtol=0)
-    np.testing.assert_allclose(np.asarray(str_pp), np.asarray(res_pp),
-                               atol=3e-7 * float(jnp.max(jnp.abs(res_pp))),
-                               rtol=0)
-    np.testing.assert_allclose(np.asarray(str_ja), np.asarray(res_ja),
-                               atol=3e-7 * scale, rtol=0)
-    np.testing.assert_allclose(np.asarray(str_jj), np.asarray(res_jj),
-                               atol=1e-6 * float(jnp.max(jnp.abs(res_jj))),
-                               rtol=0)
-
-
 def test_jnp_hilo_twins_match_extended_oracle():
-    """The df32 hilo twins are the contract the Pallas kernels are tested
-    against — they must themselves reproduce accel_extended exactly (same
-    math, same order up to chunking)."""
+    """The df32 hilo twins serve the mesh, pruned and batched extended
+    paths — they must reproduce accel_extended exactly (same math, same
+    order up to chunking)."""
     pos, vel, mass = _cluster(n=200, seed=9)
     center = jnp.mean(pos, axis=0)
     hi, lo = df32.df_from_f64(pos - center)
@@ -240,22 +175,7 @@ def test_build_scene_accepts_extended_on_mesh():
 def test_sharded_force_rejects_df32_and_rdma_extended():
     with pytest.raises(ValueError, match="df32"):
         make_sharded_force(eps=0.01, mesh=make_mesh(8), precision="df32")
-    with pytest.raises(ValueError, match="rdma"):
+    # the removed rdma mode is refused at every tier; the message points on
+    with pytest.raises(ValueError, match="rdma.*ring"):
         make_sharded_force(eps=0.01, mesh=make_mesh(8), mode="rdma",
                            precision="extended")
-
-
-def test_sharded_extended_streamed_composition(interpret, monkeypatch):
-    """The c6-on-a-mesh composition at the extended tier: allgathered
-    source planes exceed STREAM_N, so the hilo dispatch takes the
-    STREAMED kernel INSIDE shard_map (grid + scratch + Kahan under the
-    interpreter on the emulated mesh)."""
-    monkeypatch.setattr(pg, "STREAM_N", 64)    # 128 sources -> streamed
-    pos, _, mass = _cluster(n=128)
-    sf = make_sharded_force(eps=0.05, mesh=make_mesh(8), mode="allgather",
-                            backend="pallas", precision="extended")
-    out = jax.jit(sf.accel)(pos, mass)
-    ref = df32.accel_extended(pos, mass, eps=0.05, chunk=64)
-    scale = float(jnp.max(jnp.linalg.norm(ref, axis=1)))
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=2e-6 * scale, rtol=0)

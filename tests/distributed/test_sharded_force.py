@@ -1,6 +1,6 @@
-"""Multi-chip force path on an 8-device emulated CPU mesh (SURVEY.md §4.3).
+"""Multi-device force path on an 8-device emulated CPU mesh (SURVEY.md §4.3).
 
-The same tests run unchanged on a real v5e-8: the mesh comes from
+The same tests run unchanged on real devices: the mesh comes from
 jax.devices(), whatever they are.
 """
 import jax

@@ -1,7 +1,6 @@
 """Regression tests for the round-3 final-session I/O + diagnostics review."""
 import os
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,22 +19,22 @@ def _state(n=32, seed=0):
 
 
 def test_latest_snapshot_integer_order(tmp_path):
-    """Lexicographic order breaks past index 99999: 'snapshot_100000.h5' <
-    'snapshot_99999.h5' as strings — resume must use the parsed index."""
+    """Lexicographic order breaks past index 99999: 'snapshot_100000.npz' <
+    'snapshot_99999.npz' as strings — resume must use the parsed index."""
     st = _state()
     for idx in (99999, 100000):
-        write_snapshot(str(tmp_path / f"snapshot_{idx:05d}.h5"), st)
-    assert latest_snapshot(str(tmp_path)).endswith("snapshot_100000.h5")
+        write_snapshot(str(tmp_path / f"snapshot_{idx:05d}.npz"), st)
+    assert latest_snapshot(str(tmp_path)).endswith("snapshot_100000.npz")
 
 
 def test_corrupt_diagnostics_does_not_block_resume(tmp_path, capsys):
-    """diagnostics.h5 is mutated in place; a crash-corrupted table must be
-    moved aside, not crash the resume path forever."""
+    """A corrupted diagnostics table (e.g. damaged on disk) must be moved
+    aside, not crash the resume path forever."""
     w = SnapshotWriter(str(tmp_path), async_io=False)
-    (tmp_path / "diagnostics.h5").write_bytes(b"not an hdf5 file")
+    (tmp_path / "diagnostics.npz").write_bytes(b"not an npz file")
     w.truncate_diagnostics(1.0)  # must not raise
-    assert not (tmp_path / "diagnostics.h5").exists()
-    assert (tmp_path / "diagnostics.h5.corrupt").exists()
+    assert not (tmp_path / "diagnostics.npz").exists()
+    assert (tmp_path / "diagnostics.npz.corrupt").exists()
 
 
 def test_async_write_error_surfaces_at_next_write(tmp_path, monkeypatch):
@@ -67,7 +66,7 @@ def test_flush_waits_all_futures_before_raising(tmp_path):
 
     def second():
         done["second"] = True
-        return write_snapshot(str(tmp_path / "snapshot_00001.h5"), st)
+        return write_snapshot(str(tmp_path / "snapshot_00001.npz"), st)
 
     w._pending.append(w._pool.submit(boom))
     w._pending.append(w._pool.submit(second))
@@ -75,24 +74,27 @@ def test_flush_waits_all_futures_before_raising(tmp_path):
         w.flush()
     # the second write completed (was not abandoned by an early re-raise)
     assert done["second"]
-    assert os.path.exists(str(tmp_path / "snapshot_00001.h5"))
+    assert os.path.exists(str(tmp_path / "snapshot_00001.npz"))
     assert w._pending == []
 
 
 def test_schema_version_rejected(tmp_path):
-    path = str(tmp_path / "snapshot_00000.h5")
+    path = str(tmp_path / "snapshot_00000.npz")
     write_snapshot(path, _state())
-    with h5py.File(path, "a") as f:
-        f.attrs["schema_version"] = 99
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    arrays["@schema_version"] = np.asarray(99)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
     with pytest.raises(ValueError, match="schema v99"):
         read_snapshot(path)
 
 
 def test_reset_outputs_removes_orphan_tmp(tmp_path):
     w = SnapshotWriter(str(tmp_path), async_io=False)
-    (tmp_path / "snapshot_00042.h5.tmp").write_bytes(b"partial")
+    (tmp_path / "snapshot_00042.npz.tmp").write_bytes(b"partial")
     w.reset_outputs()
-    assert not (tmp_path / "snapshot_00042.h5.tmp").exists()
+    assert not (tmp_path / "snapshot_00042.npz.tmp").exists()
 
 
 def test_tidal_radius_nonpositive_coefficient_is_inf():

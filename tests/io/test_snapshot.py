@@ -22,7 +22,7 @@ def _state():
 def test_round_trip_bit_exact(tmp_path):
     state = _state()
     us = UnitSystem.henon(1000.0, 1.0)
-    path = str(tmp_path / "snap.h5")
+    path = str(tmp_path / "snap.npz")
     write_snapshot(path, state, aux={"acc": np.zeros((64, 3))},
                    integrator_kind="kdk", units=us, attrs={"step": 7})
     snap = read_snapshot(path)
@@ -46,7 +46,7 @@ def test_kdk_bitwise_resume(tmp_path):
     carry_mid = advance(carry, 100)
     ref = advance(carry_mid, 100)
 
-    path = str(tmp_path / "mid.h5")
+    path = str(tmp_path / "mid.npz")
     write_snapshot(path, carry_mid.state, aux=stepper.checkpoint_aux(carry_mid),
                    integrator_kind="kdk")
     snap = read_snapshot(path)
@@ -68,7 +68,7 @@ def test_hermite_bitwise_resume(tmp_path):
     carry_mid = advance(stepper.init(state), 50)
     ref = advance(carry_mid, 50)
 
-    path = str(tmp_path / "mid.h5")
+    path = str(tmp_path / "mid.npz")
     write_snapshot(path, carry_mid.state, aux=stepper.checkpoint_aux(carry_mid),
                    integrator_kind="hermite")
     snap = read_snapshot(path)
@@ -87,7 +87,7 @@ def test_latest_snapshot_and_writer(tmp_path):
     writer.write(0, state)
     writer.write(1, state)
     writer.flush()  # writes are async: settle before reading back
-    assert latest_snapshot(str(tmp_path)).endswith("snapshot_00001.h5")
+    assert latest_snapshot(str(tmp_path)).endswith("snapshot_00001.npz")
     writer.append_diagnostics({"E_tot": jnp.asarray(-0.25), "time": jnp.asarray(0.0)})
     writer.append_diagnostics({"E_tot": jnp.asarray(-0.26), "time": jnp.asarray(1.0)})
     d = writer.read_diagnostics()

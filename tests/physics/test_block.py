@@ -85,7 +85,7 @@ def test_block_resume_bitwise(tmp_path):
     mid = advance(block.init(state), 20)
     ref = advance(mid, 20)
 
-    path = str(tmp_path / "blk.h5")
+    path = str(tmp_path / "blk.npz")
     write_snapshot(path, mid.state, aux=block.checkpoint_aux(mid),
                    integrator_kind="block")
     snap = read_snapshot(path)
@@ -131,7 +131,7 @@ def test_block_resume_on_finer_grid(tmp_path):
     coarse = BlockHermite(force=force, dt_max=1.0 / 32, n_levels=4)
     mid = jax.jit(coarse.advance_to)(coarse.init(state), 1.0 / 32)
 
-    path = str(tmp_path / "blk.h5")
+    path = str(tmp_path / "blk.npz")
     write_snapshot(path, mid.state, aux=coarse.checkpoint_aux(mid),
                    integrator_kind="block")
     snap = read_snapshot(path)

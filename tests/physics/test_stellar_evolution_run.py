@@ -119,25 +119,7 @@ def test_budget_and_resume_other_integrators(tmp_path, integ):
                                rtol=1e-10, atol=1e-14)
 
 
-@pytest.fixture
-def interpret(monkeypatch):
-    """Pallas kernels through the interpreter at test scale (the macro
-    path is Pallas-only by design — it exists for beyond-VMEM N)."""
-    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
-    from oc_nbody_tpu.ops import pallas_gravity as pg
-    for name in ("T_SYMA", "T_SYMP", "T_SYMX", "T_SYMXP"):
-        monkeypatch.setattr(pg, name, 64)
-    monkeypatch.setattr(pg, "SYM_MIN", 64)
-    monkeypatch.setattr(pg, "STREAM_N", 128)
-    monkeypatch.setattr(pg, "CHUNK_SYM", 128)
-    monkeypatch.setattr(pg, "CHUNK_SYMX", 128)
-    yield
-    for fn in (pg.accel, pg.accel_potential, pg.accel_sym_chunked,
-               pg._chunked_batch, pg._chunked_phi_batch):
-        fn.clear_cache()
-
-
-def test_macro_stepper_with_sev(tmp_path, interpret):
+def test_macro_stepper_with_sev(tmp_path):
     """[sev] through the multi-dispatch macro path (host-stepped KDK with
     integrator.macro_batches): the SEV boundary runs compute_diag via the
     batched evals and rebuilds the macro carry with stepper.init. The
@@ -146,7 +128,7 @@ def test_macro_stepper_with_sev(tmp_path, interpret):
     f32 pair-summation-order tolerance."""
     def base(name, macro):
         c = _cfg(tmp_path, name, t_end=4.0)
-        c.backend = "pallas" if macro else "jnp"
+        c.backend = "jnp"
         integ = dataclasses.replace(c.integrator, dt=1.0 / 8,
                                     macro_batches=2 if macro else 0)
         out = dataclasses.replace(c.output, diag_every=1.0, snap_every=2.0)

@@ -33,7 +33,7 @@ def test_cli_run_and_analysis(tmp_path, capsys):
     cfg = _write_cfg(tmp_path)
     assert cli.main(["run", cfg]) == 0
     run_dir = str(tmp_path / "run")
-    assert os.path.exists(os.path.join(run_dir, "diagnostics.h5"))
+    assert os.path.exists(os.path.join(run_dir, "diagnostics.npz"))
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "analysis"))
     try:
@@ -43,7 +43,7 @@ def test_cli_run_and_analysis(tmp_path, capsys):
                        "--structure"])
         assert os.path.exists(str(tmp_path / "plots.png"))
         assert os.path.exists(str(tmp_path / "plots_structure.png"))
-        snap = os.path.join(run_dir, "snapshot_00000.h5")
+        snap = os.path.join(run_dir, "snapshot_00000.npz")
         inspect_snapshot.main([snap, "--plot", str(tmp_path / "xy.png")])
         assert os.path.exists(str(tmp_path / "xy.png"))
 
@@ -181,7 +181,7 @@ def test_binaries_script(tmp_path):
         # census the t=0 snapshot: this coarse-dt smoke run scrambles the
         # tightest pairs dynamically (dt ~ P_min/3), which is the run's
         # problem, not the census's
-        snap0 = os.path.join(str(tmp_path / "bins"), "snapshot_00000.h5")
+        snap0 = os.path.join(str(tmp_path / "bins"), "snapshot_00000.npz")
         assert binaries_script.main([snap0, "--csv", csv,
                                      "--save", png, "--chunk", "32"]) == 0
         assert os.path.exists(png)
@@ -214,7 +214,7 @@ def test_convert_script_roundtrip(tmp_path):
                                     "analysis"))
     try:
         import convert
-        ic_h5 = str(tmp_path / "ic.h5")
+        ic_h5 = str(tmp_path / "ic.npz")
         convert.main(["import", str(src), ic_h5, "--mass-scale", "2.0"])
 
         # imported snapshot drives a run as a file IC
@@ -243,11 +243,10 @@ def test_convert_script_roundtrip(tmp_path):
             assert z["ids"].shape == (n,)
 
         # npz also imports (with ids and time preserved)
-        ic2 = str(tmp_path / "ic2.h5")
+        ic2 = str(tmp_path / "ic2.npz")
         convert.main(["import", npz, ic2, "--time", "1.5"])
-        import h5py
-        with h5py.File(ic2) as f:
-            assert float(f.attrs["time"]) == 1.5
+        with np.load(ic2) as f:
+            assert float(f["@time"]) == 1.5
             assert f["particles/pos"].shape == (n, 3)
     finally:
         sys.path.pop(0)

@@ -32,7 +32,7 @@ def test_run_produces_outputs(tmp_path):
     assert res.n_steps == 64
     assert float(res.state.time) == pytest.approx(0.5)
     files = sorted(os.listdir(cfg.output.out_dir))
-    assert "diagnostics.h5" in files
+    assert "diagnostics.npz" in files
     assert any(f.startswith("snapshot_") for f in files)
     assert "E_tot" in res.diagnostics and len(res.diagnostics["E_tot"]) == 3
     assert abs(res.diagnostics["dE_over_E"][-1]) < 1e-5

@@ -3,7 +3,7 @@
 The configs/ directory is the acceptance suite (SURVEY.md §5 "the five
 [B:7-11] configs ship as committed config files"); several of them can
 only *run* on real hardware (macro/oversized N), so a typo'd key or an
-inconsistent knob combination would otherwise surface only mid-TPU-run.
+inconsistent knob combination would otherwise surface only mid-run.
 ``SimConfig.from_dict`` rejects unknown sections/keys, so loading alone
 is a real check; the semantic assertions pin the cross-field contracts
 the driver relies on.
@@ -44,10 +44,9 @@ def test_committed_config_loads_and_is_consistent(path):
     if cfg.integrator.kind == "kdk":
         assert cfg.integrator.dt > 0
     if cfg.integrator.macro_batches:
-        # the oversized-eval path exists only for the Pallas f32/extended
-        # tiers (forces.py _require_batched); a committed macro config
-        # must not route to a backend that raises at the first eval
-        assert cfg.backend in ("auto", "pallas")
+        # the batched path serves the f32/extended tiers on every backend
+        # (forces.py _require_batched); a committed macro config must not
+        # route to a tier that raises at the first eval
         assert cfg.integrator.precision in ("f32", "extended")
         assert cfg.integrator.kind in ("kdk", "hermite")
     if cfg.integrator.precision != "f32":

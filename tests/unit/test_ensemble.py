@@ -97,10 +97,10 @@ def test_ensemble_validation(tmp_path):
 
 def test_ensemble_explicit_out_path_creates_parent(tmp_path):
     # regression: an explicit out_path into a directory that does not exist
-    # yet must not lose the completed survey at write time (a 48-member TPU
-    # run finished its compute, then errno-2'd creating the H5)
+    # yet must not lose the completed survey at write time (a 48-member
+    # run finished its compute, then errno-2'd creating the output file)
     cfg = _cfg(tmp_path / "ignored_out_dir", **{"output.t_end": 0.5})
-    out = tmp_path / "does" / "not" / "exist" / "ens.h5"
+    out = tmp_path / "does" / "not" / "exist" / "ens.npz"
     res = run_ensemble(cfg, [1, 2], out_path=str(out))
     assert out.exists() and res.out_path == str(out)
 
@@ -153,7 +153,7 @@ def test_ensemble_cli(tmp_path, capsys):
                "--set", "output.stdout=false",
                "--seeds", "0:4"])
     assert rc == 0
-    _, seeds, table, _ = read_ensemble(str(out / "ensemble.h5"))
+    _, seeds, table, _ = read_ensemble(str(out / "ensemble.npz"))
     assert seeds == [0, 1, 2, 3]
     assert table["E_tot"].shape[1] == 4
 

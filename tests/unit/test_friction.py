@@ -132,7 +132,7 @@ def test_isothermal_inspiral_rate(tmp_path):
     assert np.all(res.diagnostics["a_df"][1:] > 0)
 
     ts, r2s = [], []
-    for p in sorted(glob.glob(str(tmp_path / "inspiral" / "snapshot_*.h5"))):
+    for p in sorted(glob.glob(str(tmp_path / "inspiral" / "snapshot_*.npz"))):
         s = read_snapshot(p).state
         m = np.asarray(s.mass, np.float64)
         com = (np.asarray(s.pos) * m[:, None]).sum(0) / m.sum()
@@ -193,7 +193,7 @@ def test_isothermal_inspiral_rate_block(tmp_path):
     assert np.all(res.diagnostics["a_df"][1:] > 0)
 
     ts, r2s = [], []
-    for p in sorted(glob.glob(str(tmp_path / "blk" / "snapshot_*.h5"))):
+    for p in sorted(glob.glob(str(tmp_path / "blk" / "snapshot_*.npz"))):
         s = read_snapshot(p).state
         m = np.asarray(s.mass, np.float64)
         com = (np.asarray(s.pos) * m[:, None]).sum(0) / m.sum()
@@ -206,7 +206,10 @@ def test_isothermal_inspiral_rate_block(tmp_path):
     assert slope == pytest.approx(expect, rel=0.02), (slope, expect)
 
 
-def test_macro_friction_matches_in_jit(tmp_path, monkeypatch):
+@pytest.mark.parametrize("kw", [
+    pytest.param({"backend": "jnp"}, id="jnp"),
+    pytest.param({"backend": "pallas", "interpret": True}, id="pallas")])
+def test_macro_friction_matches_in_jit(tmp_path, kw):
     """friction x macro_batches: the drag flows through accel_batched
     (kick-point velocities threaded by the macro steppers), so the
     host-stepped trajectory tracks the in-jit KDK with friction."""
@@ -215,42 +218,29 @@ def test_macro_friction_matches_in_jit(tmp_path, monkeypatch):
     from oc_nbody_tpu.forces import make_force_model
     from oc_nbody_tpu.integrators.leapfrog import LeapfrogKDK, MacroKDK
     from oc_nbody_tpu.models.plummer import plummer
-    from oc_nbody_tpu.ops import pallas_gravity as pg
 
-    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
-    monkeypatch.setattr(pg, "T_SYMA", 64)
-    monkeypatch.setattr(pg, "SYM_MIN", 64)
-    monkeypatch.setattr(pg, "CHUNK_SYM", 128)
-    try:
-        halo = pot.LogHalo(v0=jnp.asarray(5.0), rc=jnp.asarray(0.05))
-        fr = ChandrasekharFriction(host=halo, G=jnp.asarray(1.0),
-                                   ln_lambda=jnp.asarray(10.0),
-                                   sigma=jnp.asarray(0.0))
-        force = make_force_model(eps=0.05, external=halo, backend="pallas",
-                                 friction=fr)
-        n, dt, steps = 128, 1.0 / 64, 4
-        state = plummer(n, jax.random.PRNGKey(3)).shifted(
-            dpos=jnp.array([30.0, 0.0, 0.0]),
-            dvel=jnp.array([0.0, 5.0, 0.0]))
+    halo = pot.LogHalo(v0=jnp.asarray(5.0), rc=jnp.asarray(0.05))
+    fr = ChandrasekharFriction(host=halo, G=jnp.asarray(1.0),
+                               ln_lambda=jnp.asarray(10.0),
+                               sigma=jnp.asarray(0.0))
+    force = make_force_model(eps=0.05, external=halo, friction=fr, **kw)
+    n, dt, steps = 128, 1.0 / 64, 4
+    state = plummer(n, jax.random.PRNGKey(3)).shifted(
+        dpos=jnp.array([30.0, 0.0, 0.0]),
+        dvel=jnp.array([0.0, 5.0, 0.0]))
 
-        ref = LeapfrogKDK(force=force, dt=dt)
-        c_ref = jax.jit(ref.advance, static_argnums=1)(ref.init(state),
-                                                       steps)
-        mac = MacroKDK(force=force, dt=dt, n_batches=2)
-        c_mac = mac.advance_to_bounded(mac.init(state), steps * dt,
-                                       max_steps=100)
-        # the drag is large enough to matter: switching it off must move
-        # trajectory far more than the macro-vs-in-jit difference
-        scale = float(jnp.max(jnp.abs(c_ref.state.pos)))
-        err = float(jnp.max(jnp.abs(c_mac.state.pos - c_ref.state.pos)))
-        assert err < 1e-5 * scale
-        nof = LeapfrogKDK(force=dataclasses.replace(force, friction=None),
-                          dt=dt)
-        c_nof = jax.jit(nof.advance, static_argnums=1)(nof.init(state),
-                                                       steps)
-        gap = float(jnp.max(jnp.abs(c_nof.state.pos - c_ref.state.pos)))
-        assert gap > 100 * max(err, 1e-12), (gap, err)
-    finally:
-        pg.accel.clear_cache()
-        pg.accel_sym_chunked.clear_cache()
-        pg._chunked_batch.clear_cache()
+    ref = LeapfrogKDK(force=force, dt=dt)
+    c_ref = jax.jit(ref.advance, static_argnums=1)(ref.init(state), steps)
+    mac = MacroKDK(force=force, dt=dt, n_batches=2)
+    c_mac = mac.advance_to_bounded(mac.init(state), steps * dt,
+                                   max_steps=100)
+    # the drag is large enough to matter: switching it off must move
+    # trajectory far more than the macro-vs-in-jit difference
+    scale = float(jnp.max(jnp.abs(c_ref.state.pos)))
+    err = float(jnp.max(jnp.abs(c_mac.state.pos - c_ref.state.pos)))
+    assert err < 1e-5 * scale
+    nof = LeapfrogKDK(force=dataclasses.replace(force, friction=None),
+                      dt=dt)
+    c_nof = jax.jit(nof.advance, static_argnums=1)(nof.init(state), steps)
+    gap = float(jnp.max(jnp.abs(c_nof.state.pos - c_ref.state.pos)))
+    assert gap > 100 * max(err, 1e-12), (gap, err)

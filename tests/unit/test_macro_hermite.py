@@ -1,5 +1,5 @@
 """MacroHermite — host-stepped shared-dt Hermite over the batched
-chunked-sym jerk kernels (the Hermite twin of MacroKDK; round-3 ROADMAP
+one-sided jerk sweeps (the Hermite twin of MacroKDK; round-3 ROADMAP
 #5's second half). Pins (a) trajectory equivalence with the in-jit
 Hermite4, (b) the full driver loop with kind="hermite" +
 ``integrator.macro_batches``, (c) macro <-> in-jit snapshot elasticity.
@@ -14,21 +14,11 @@ from oc_nbody_tpu.integrators.hermite import Hermite4, MacroHermite
 from oc_nbody_tpu.models.plummer import plummer
 
 
-@pytest.fixture
-def interpret(monkeypatch):
-    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
-    from oc_nbody_tpu.ops import pallas_gravity as pg
-    for tname in ("T_SYMA", "T_SYMP", "T_SYM", "SYM_MIN", "RT_MIN_JERK"):
-        monkeypatch.setattr(pg, tname, 64)
-    monkeypatch.setattr(pg, "STREAM_N", 128)
-    for cname in ("CHUNK_SYM", "CHUNK_SYMJ"):
-        monkeypatch.setattr(pg, cname, 128)
-    yield
-    for f in (pg.accel, pg.accel_potential, pg.accel_jerk,
-              pg.accel_sym_chunked, pg.accel_jerk_sym_chunked,
-              pg._chunked_batch, pg._chunked_phi_batch,
-              pg._chunked_jerk_batch):
-        f.clear_cache()
+# the batched path runs on every backend: the jnp sweep and the Pallas
+# (Triton) kernels through the interpreter
+BACKENDS = [pytest.param({"backend": "jnp"}, id="jnp"),
+            pytest.param({"backend": "jnp", "interpret": True},
+                         id="pallas")]
 
 
 # quantize=True with a generous eta keeps both steppers pinned at
@@ -38,10 +28,11 @@ def interpret(monkeypatch):
 _H = dict(eta=0.5, eta_init=0.5, dt_max=1.0 / 64, quantize=True)
 
 
-def test_macro_hermite_matches_in_jit(interpret):
+@pytest.mark.parametrize("kw", BACKENDS)
+def test_macro_hermite_matches_in_jit(kw):
     n, t_end = 300, 4.0 / 64
     state = plummer(n, jax.random.PRNGKey(3))
-    force = make_force_model(eps=0.05, backend="pallas")
+    force = make_force_model(eps=0.05, **kw)
 
     ref = Hermite4(force=force, **_H)
     c_ref = ref.init(state)
@@ -65,11 +56,12 @@ def test_macro_hermite_matches_in_jit(interpret):
     assert int(c2.n_steps) == 2
 
 
-def test_macro_hermite_pec2(interpret):
+@pytest.mark.parametrize("kw", BACKENDS)
+def test_macro_hermite_pec2(kw):
     """The PEC² option re-evaluates through the batched path too."""
     n, t_end = 200, 2.0 / 64
     state = plummer(n, jax.random.PRNGKey(11))
-    force = make_force_model(eps=0.05, backend="pallas")
+    force = make_force_model(eps=0.05, **kw)
     ref = Hermite4(force=force, pec2=True, **_H)
     c_ref = jax.jit(ref.advance_to)(ref.init(state), t_end)
     mac = MacroHermite(force=force, pec2=True, n_batches=2, **_H)
@@ -79,7 +71,7 @@ def test_macro_hermite_pec2(interpret):
         < 1e-5 * scale
 
 
-def test_macro_hermite_driver_and_elasticity(interpret, tmp_path):
+def test_macro_hermite_driver_and_elasticity(tmp_path):
     """run() with kind='hermite' + macro_batches: host-stepped advance,
     precomputed-phi diagnostics, and snapshot elasticity with the in-jit
     Hermite4 (same aux contract both directions)."""
@@ -92,7 +84,7 @@ def test_macro_hermite_driver_and_elasticity(interpret, tmp_path):
             "integrator": {"kind": "hermite", "eps": 0.05, "eta": 0.5,
                            "eta_init": 0.5, "dt_max": 1.0 / 64,
                            "quantize": True, "macro_batches": macro},
-            "backend": "pallas",
+            "backend": "jnp",
             "output": {"out_dir": out, "t_end": t_end,
                        "diag_every": 2.0 / 64, "snap_every": 2.0 / 64,
                        "stdout": False},

@@ -1,16 +1,13 @@
-"""MacroKDK — host-stepped KDK over the batched chunked-sym kernels.
+"""MacroKDK — host-stepped KDK over the batched one-sided row sweeps.
 
-The oversized-N driver path (N past the single-XLA-program window):
-advance is a host loop of per-step dispatch groups instead of one jitted
-superstep, and the diagnostics' O(N²) potential is precomputed outside
-the jit. These tests run the Pallas kernels in interpret mode on CPU and
-pin (a) trajectory equivalence with the in-jit LeapfrogKDK, (b) the full
-driver loop (run()) with ``integrator.macro_batches`` set, including
-diagnostics and snapshot/resume.
+The oversized-N driver path: advance is a host loop of per-step dispatch
+groups instead of one jitted superstep, and the diagnostics' O(N²)
+potential is precomputed outside the jit. These tests run on the jnp
+backend and on the Pallas kernels in interpret mode on CPU, and pin (a)
+trajectory equivalence with the in-jit LeapfrogKDK, (b) the full driver
+loop (run()) with ``integrator.macro_batches`` set, including diagnostics
+and snapshot/resume.
 """
-import os
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,41 +18,21 @@ from oc_nbody_tpu.integrators.leapfrog import LeapfrogKDK, MacroKDK
 from oc_nbody_tpu.models.plummer import plummer
 
 
-@pytest.fixture
-def interpret(monkeypatch):
-    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
-    # the production chunk (131072) pads tiny test N up to a full
-    # 131072² interpret-mode sweep — shrink everything to test scale
-    from oc_nbody_tpu.ops import pallas_gravity as pg
-    monkeypatch.setattr(pg, "T_SYMA", 64)
-    monkeypatch.setattr(pg, "T_SYMP", 64)
-    monkeypatch.setattr(pg, "T_SYMX", 64)
-    monkeypatch.setattr(pg, "T_SYMXP", 64)
-    monkeypatch.setattr(pg, "SYM_MIN", 64)
-    monkeypatch.setattr(pg, "STREAM_N", 128)
-    monkeypatch.setattr(pg, "CHUNK_SYM", 128)
-    monkeypatch.setattr(pg, "CHUNK_SYMX", 128)
-    yield
-    pg.accel.clear_cache()
-    pg.accel_potential.clear_cache()
-    pg.accel_x.clear_cache()
-    pg.accel_potential_x.clear_cache()
-    pg.accel_sym_chunked.clear_cache()
-    pg.accel_sym_x_chunked.clear_cache()
-    pg.accel_potential_sym_x_chunked.clear_cache()
-    pg._chunked_batch.clear_cache()
-    pg._chunked_phi_batch.clear_cache()
-    pg._chunked_x_batch.clear_cache()
-    pg._chunked_x_phi_batch.clear_cache()
+# the batched path runs on every backend: the jnp sweep and the Pallas
+# (Triton) kernels through the interpreter
+BACKENDS = [pytest.param({"backend": "jnp"}, id="jnp"),
+            pytest.param({"backend": "jnp", "interpret": True},
+                         id="pallas")]
 
 
-def test_macro_kdk_matches_in_jit_kdk(interpret):
+@pytest.mark.parametrize("kw", BACKENDS)
+def test_macro_kdk_matches_in_jit_kdk(kw):
     """Same force model, same dt: MacroKDK's host-stepped trajectory must
-    track the jitted LeapfrogKDK superstep (different pair-summation
-    order: batched chunked-sym vs resident dispatch -> f32 tolerance)."""
+    track the jitted LeapfrogKDK superstep (different centring and
+    dispatch of the f32 pair sums -> f32 tolerance)."""
     n, dt, steps = 300, 1.0 / 64, 5
     state = plummer(n, jax.random.PRNGKey(3))
-    force = make_force_model(eps=0.05, backend="pallas")
+    force = make_force_model(eps=0.05, **kw)
 
     ref = LeapfrogKDK(force=force, dt=dt)
     c_ref = ref.init(state)
@@ -78,7 +55,7 @@ def test_macro_kdk_matches_in_jit_kdk(interpret):
     assert int(c2.n_steps) == 2
 
 
-def test_macro_driver_end_to_end(interpret, tmp_path):
+def test_macro_driver_end_to_end(tmp_path):
     """run() with integrator.macro_batches > 0: host-stepped advance,
     precomputed-phi diagnostics, snapshots, and a bit-identical resume
     (the same acceptance criterion as the in-jit driver)."""
@@ -89,7 +66,7 @@ def test_macro_driver_end_to_end(interpret, tmp_path):
         "ic": {"kind": "plummer", "n": 192, "seed": 5},
         "integrator": {"kind": "kdk", "dt": 1.0 / 64, "eps": 0.05,
                        "macro_batches": 2},
-        "backend": "pallas",
+        "backend": "jnp",
         "output": {"out_dir": str(tmp_path / "macro"),
                    "t_end": 4.0 / 64, "diag_every": 2.0 / 64,
                    "snap_every": 2.0 / 64, "stdout": False},
@@ -106,7 +83,7 @@ def test_macro_driver_end_to_end(interpret, tmp_path):
         "ic": {"kind": "plummer", "n": 192, "seed": 5},
         "integrator": {"kind": "kdk", "dt": 1.0 / 64, "eps": 0.05,
                        "macro_batches": 2},
-        "backend": "pallas",
+        "backend": "jnp",
         "output": {"out_dir": str(tmp_path / "macro2"),
                    "t_end": 2.0 / 64, "diag_every": 2.0 / 64,
                    "snap_every": 2.0 / 64, "stdout": False},
@@ -116,7 +93,7 @@ def test_macro_driver_end_to_end(interpret, tmp_path):
         "ic": {"kind": "plummer", "n": 192, "seed": 5},
         "integrator": {"kind": "kdk", "dt": 1.0 / 64, "eps": 0.05,
                        "macro_batches": 2},
-        "backend": "pallas",
+        "backend": "jnp",
         "output": {"out_dir": str(tmp_path / "macro2"),
                    "t_end": 4.0 / 64, "diag_every": 2.0 / 64,
                    "snap_every": 2.0 / 64, "stdout": False},
@@ -125,7 +102,7 @@ def test_macro_driver_end_to_end(interpret, tmp_path):
     np.testing.assert_array_equal(np.asarray(res2.state.pos), final_pos)
 
 
-def test_macro_snapshot_resumes_in_jit_and_back(interpret, tmp_path):
+def test_macro_snapshot_resumes_in_jit_and_back(tmp_path):
     """Stepper-mode elasticity: a snapshot written by the macro stepper
     resumes under the in-jit LeapfrogKDK and vice versa (same integrator
     kind 'kdk', same aux contract) — an 8M run checkpointed under
@@ -138,7 +115,7 @@ def test_macro_snapshot_resumes_in_jit_and_back(interpret, tmp_path):
             "ic": {"kind": "plummer", "n": 192, "seed": 5},
             "integrator": {"kind": "kdk", "dt": 1.0 / 64, "eps": 0.05,
                            "macro_batches": macro},
-            "backend": "pallas",
+            "backend": "jnp",
             "output": {"out_dir": out, "t_end": t_end,
                        "diag_every": 2.0 / 64, "snap_every": 2.0 / 64,
                        "stdout": False},
@@ -152,8 +129,8 @@ def test_macro_snapshot_resumes_in_jit_and_back(interpret, tmp_path):
     run(cfg(out2, 2.0 / 64, macro=0))                     # in-jit first leg
     res2 = run(cfg(out2, 4.0 / 64, macro=2), resume=True)  # macro second
     assert res2.n_steps == 4
-    # both orders land on the same state as a pure in-jit run (the force
-    # dispatch is identical at this N: chunked kernels both ways)
+    # both orders land on the same state as a pure in-jit run (the same
+    # row sums of the same f32 operands both ways)
     ref = run(cfg(str(tmp_path / "ref"), 4.0 / 64, macro=0))
     np.testing.assert_array_equal(np.asarray(res.state.pos),
                                   np.asarray(ref.state.pos))
@@ -161,20 +138,19 @@ def test_macro_snapshot_resumes_in_jit_and_back(interpret, tmp_path):
                                   np.asarray(ref.state.pos))
 
 
-def test_macro_extended_tier(interpret, tmp_path):
+@pytest.mark.parametrize("kw", BACKENDS)
+def test_macro_extended_tier(kw, tmp_path):
     """precision='extended' through the oversized-eval path: the force
     model routes accel_batched / accel_potential_batched to the extended
-    batched kernels (previously a hard ValueError), and the full macro
-    driver runs the extended tier end-to-end — closing the last tier gap
-    in the oversized-N regime (round-3 ROADMAP #5)."""
+    tier's hi/lo row sweeps, and the full macro driver runs the extended
+    tier end-to-end (round-3 ROADMAP #5)."""
     from oc_nbody_tpu.config import SimConfig
     from oc_nbody_tpu.run import run
 
     # ForceModel-level: extended batched ≡ extended in-jit eval
     n = 300
     state = plummer(n, jax.random.PRNGKey(7))
-    force = make_force_model(eps=0.05, backend="pallas",
-                             precision="extended")
+    force = make_force_model(eps=0.05, precision="extended", **kw)
     a_ref = jax.jit(force.accel)(state.pos, state.mass)
     a_bat = force.accel_batched(state.pos, state.mass, n_batches=2)
     scale = float(jnp.max(jnp.abs(a_ref)))
@@ -191,7 +167,7 @@ def test_macro_extended_tier(interpret, tmp_path):
         "ic": {"kind": "plummer", "n": 192, "seed": 5},
         "integrator": {"kind": "kdk", "dt": 1.0 / 64, "eps": 0.05,
                        "macro_batches": 2, "precision": "extended"},
-        "backend": "pallas",
+        "backend": "jnp",
         "output": {"out_dir": str(tmp_path / "xmacro"),
                    "t_end": 2.0 / 64, "diag_every": 2.0 / 64,
                    "snap_every": 2.0 / 64, "stdout": False},
@@ -202,21 +178,20 @@ def test_macro_extended_tier(interpret, tmp_path):
     assert abs(res.diagnostics["dE_over_E_int"][-1]) < 1e-4
 
 
-def test_batched_rejects_df32_and_jnp():
-    """The oversized-eval API accepts exactly the f32/extended Pallas
-    tiers: df32 (no oversized kernels) and the jnp backend raise at the
-    first batched call with a clear message."""
+@pytest.mark.parametrize("kw", BACKENDS)
+def test_batched_rejects_df32(kw):
+    """The batched API accepts the f32/extended tiers on every backend:
+    df32 (no batched form) raises at the first batched call with a clear
+    message."""
     state = plummer(64, jax.random.PRNGKey(9))
-    for kw in ({"precision": "df32", "backend": "pallas"},
-               {"precision": "f32", "backend": "jnp"}):
-        force = make_force_model(eps=0.05, **kw)
-        with pytest.raises(ValueError, match="batched oversized"):
-            force.accel_batched(state.pos, state.mass)
-        with pytest.raises(ValueError, match="batched oversized"):
-            force.accel_jerk_batched(state.pos, state.vel, state.mass)
+    force = make_force_model(eps=0.05, precision="df32", **kw)
+    with pytest.raises(ValueError, match="batched evals"):
+        force.accel_batched(state.pos, state.mass)
+    with pytest.raises(ValueError, match="batched evals"):
+        force.accel_jerk_batched(state.pos, state.vel, state.mass)
 
 
-def test_macro_driver_with_time_dependent_field(interpret, tmp_path):
+def test_macro_driver_with_time_dependent_field(tmp_path):
     """Host-stepped driver + a configured perturber: the diagnostics'
     precomputed-phi path must bind the evaluation time before calling
     accel_potential_batched (a time-dependent external raises on unbound
@@ -235,7 +210,7 @@ def test_macro_driver_with_time_dependent_field(interpret, tmp_path):
         "orbit": {"kind": "circular", "R0_pc": 8000.0},
         "integrator": {"kind": "kdk", "dt": 1.0 / 64, "eps": 0.05,
                        "macro_batches": 2},
-        "backend": "pallas",
+        "backend": "jnp",
         "output": {"out_dir": str(tmp_path / "macro_td"),
                    "t_end": 4.0 / 64, "diag_every": 2.0 / 64,
                    "snap_every": 2.0 / 64, "stdout": False},
@@ -246,14 +221,15 @@ def test_macro_driver_with_time_dependent_field(interpret, tmp_path):
     assert np.isfinite(res.diagnostics["d_pert"]).all()
 
 
-def test_macro_yoshida_matches_in_jit(interpret):
+@pytest.mark.parametrize("kw", BACKENDS)
+def test_macro_yoshida_matches_in_jit(kw):
     """MacroYoshida4's host-stepped trajectory tracks the jitted Yoshida4
     superstep (same contract as the MacroKDK test above)."""
     from oc_nbody_tpu.integrators.leapfrog import MacroYoshida4, Yoshida4
 
     n, dt, steps = 300, 1.0 / 64, 4
     state = plummer(n, jax.random.PRNGKey(3))
-    force = make_force_model(eps=0.05, backend="pallas")
+    force = make_force_model(eps=0.05, **kw)
 
     ref = Yoshida4(force=force, dt=dt)
     c_ref = jax.jit(ref.advance, static_argnums=1)(ref.init(state), steps)

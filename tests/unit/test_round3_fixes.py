@@ -4,7 +4,7 @@ Each test pins one previously-latent defect:
   * run() mutated cfg.output in place (VERDICT W4)
   * mode='rdma' + backend='jnp' failed late with a Mosaic error (W6)
   * Hermite4.restore accepted a checkpointed dt above dt_max (W7)
-  * Hermite4 quantize used float 2.0**(-k) — not bit-exact on TPU
+  * Hermite4 quantize used float 2.0**(-k) — not bit-exact on every backend
     emulated f64 (VERDICT Missing #4; block.py's int grid applied)
   * --resume with no snapshot wiped existing outputs (ADVICE low)
   * accel_jerk_on_rows silently fell to f32 for df32/extended-jnp
@@ -61,7 +61,8 @@ def test_run_does_not_mutate_config(tmp_path):
 
 
 def test_rdma_requires_pallas_backend():
-    """W6: construction-time error instead of a late Mosaic lowering one."""
+    """W6: construction-time error instead of a late lowering one — the
+    removed rdma mode is refused on every backend."""
     from oc_nbody_tpu.parallel import make_mesh, make_sharded_force
     with pytest.raises(ValueError, match="rdma"):
         make_sharded_force(eps=0.01, mesh=make_mesh(8), mode="rdma",
@@ -90,7 +91,7 @@ def test_hermite_restore_clamps_dt(key):
 
 def test_hermite_quantize_exact_power_of_two(key):
     """Missing #4: quantized dt must be EXACTLY dt_max / 2^k — formed by an
-    int64 shift, not float 2.0**(-k) (which is not bit-exact under TPU
+    int64 shift, not float 2.0**(-k) (which is not bit-exact under
     emulated f64; see integrators/block.py 'Integer time grid')."""
     state = plummer(32, key)
     force = make_force_model(eps=1.0 / 32, backend="jnp")
